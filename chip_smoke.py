@@ -8,8 +8,10 @@ Phases, in order; any failure exits non-zero before the last line:
   2. build: every kernel source under the port's ops/csrc with nvcc for
      sm_90a, one process per source, all started together;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes and at a ragged edge, its gradient, and its time
-     (CUDA events) beside its bound and the plain version's time;
+     the main path's shapes (skinning: the affines strided as lbs passes
+     them, and contiguous), at the training batch (64) and at ragged edges,
+     its gradient, and its time (CUDA graph and eager, CUDA events) beside
+     its bound, the plain version's time and the single-node floor;
   4. main path: cashmrV2 at full width (batch 32, 224x224, float32, seeded
      random weights, 2-pass cascade, final_recon=False) -> SMPL LBS -> J17
      -> MPJPE / PA-MPJPE through `make_inference_fn`, with the launch
@@ -21,6 +23,7 @@ Then the kernel table as one JSON line, the nvidia-smi line, and
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -89,26 +92,42 @@ def main() -> int:
     V = smpl.v_template.shape[0]
 
     def skin_inputs(b, v, weights=None):
+        """v_posed, W, and the affines as lbs hands them over: A_rot and A_t
+        are strided views of one [b, 24, 4, 4] world-transform tensor."""
         verts = 0.3 * torch.randn(b, v, 3, generator=gen, device=dev)
         if weights is None:
             weights = torch.rand(v, 24, generator=gen, device=dev)
             weights = weights / weights.sum(1, keepdim=True)
-        rot = batch_rodrigues(0.4 * torch.randn(b, 24, 3, generator=gen, device=dev))
-        t = 0.2 * torch.randn(b, 24, 3, generator=gen, device=dev)
-        return [verts, weights, rot, t]
+        world = torch.zeros(b, 24, 4, 4, device=dev)
+        world[..., :3, :3] = batch_rodrigues(0.4 * torch.randn(b, 24, 3, generator=gen, device=dev))
+        world[..., :3, 3] = 0.2 * torch.randn(b, 24, 3, generator=gen, device=dev)
+        world[..., 3, 3] = 1.0
+        return [verts, weights, world[..., :3, :3], world[..., :3, 3]]
 
     def max_err(args):
         out = sk.skinning_forward(*args)
         torch.cuda.synchronize()
         return (out - sk.skinning_reference(*args)).abs().max().item()
 
+    # Forward: strided affines (as lbs passes them) and their contiguous
+    # copies at the main path's shapes, at the training batch, and at a
+    # ragged B and V (B not a multiple of the chunk, V not of the tile).
     main_args = skin_inputs(BATCH, V, smpl.lbs_weights)
-    err_main = max_err(main_args)
-    err_ragged = max_err(skin_inputs(3, 700))
-    log("skinning_forward", max_abs_err_b32_v6890=err_main, max_abs_err_b3_v700=err_ragged, tolerance=1e-5)
-    check(err_main <= 1e-5 and err_ragged <= 1e-5, "skinning kernel disagrees with skinning_reference")
+    b64_args = skin_inputs(64, V, smpl.lbs_weights)
+    errs = {
+        "b32_v6890_strided": max_err(main_args),
+        "b32_v6890_contiguous": max_err([a.contiguous() for a in main_args]),
+        "b64_v6890_strided": max_err(b64_args),
+        "b5_v6890_strided": max_err(skin_inputs(5, V)),
+        "b33_v701_strided": max_err(skin_inputs(33, 701)),
+        "b3_v700_strided": max_err(skin_inputs(3, 700)),
+        "b1_v1_strided": max_err(skin_inputs(1, 1)),
+    }
+    err_main = errs["b32_v6890_strided"]
+    log("skinning_forward", max_abs_err=errs, tolerance=1e-5)
+    check(max(errs.values()) <= 1e-5, "skinning kernel disagrees with skinning_reference")
 
-    grad_args = [a.requires_grad_(True) for a in skin_inputs(2, 300)]
+    grad_args = [a.detach().clone().requires_grad_(True) for a in skin_inputs(2, 300)]
     ref_args = [a.detach().clone().requires_grad_(True) for a in grad_args]
     g = torch.randn(2, 300, 3, generator=gen, device=dev)
     sk.skinning(*grad_args).backward(g)
@@ -153,19 +172,59 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / (reps * replays)
 
-    # Device time of one wrapper call (pack the affines + the kernel) and of
-    # the plain version, each back to back with its inputs in L2, as on the
-    # main path where v_posed was just written.
-    skin_ms = graph_ms(lambda: sk.skinning_forward(*main_args))
-    plain_ms = graph_ms(lambda: sk.skinning_reference(*main_args))
-    # The same calls issued eagerly from Python, one event pair over 200.
-    skin_eager_ms = cuda_ms(lambda: sk.skinning_forward(*main_args), 200)
-    plain_eager_ms = cuda_ms(lambda: sk.skinning_reference(*main_args), 200)
-    nbytes = 4 * (2 * BATCH * V * 3 + V * 24 + BATCH * 24 * 12)
-    flops = 2 * BATCH * V * (24 * 12 + 12)
-    bytes_ms, flops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
-    log("skinning_time", batch=BATCH, vertices=V, ms=skin_ms, plain_ms=plain_ms, eager_ms=skin_eager_ms,
-        plain_eager_ms=plain_eager_ms, bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, flops_ms), card=smi)
+    def bound(b):
+        """(bytes, flops, bound ms, bound_by) of one call at batch b, V vertices."""
+        nbytes = 4 * (2 * b * V * 3 + V * 24 + b * 24 * 12)
+        flops = 2 * b * V * (24 * 12 + 12)
+        bytes_ms, flops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+        return nbytes, flops, max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+    # The least one graph node costs on this card: a one-element in-place op.
+    one = torch.zeros(1, device=dev)
+    floor_ms = graph_ms(lambda: one.add_(1.0))
+    log("single_node_floor", ms=floor_ms, card=smi)
+
+    # Two yardsticks beside the kernel, one graph node each: a copy of
+    # v_posed into a buffer of its size (the kernel's unavoidable traffic,
+    # v_posed in and out, without the blend), and the [B, 24, 12] affine
+    # pack that the earlier wrapper ran before its kernel (torch.cat of the
+    # contiguous A_rot and A_t).
+    sink = torch.empty_like(main_args[0])
+    copy_ms = graph_ms(lambda: sink.copy_(main_args[0]))
+    rot_c, t_c = main_args[2].contiguous(), main_args[3].contiguous()
+    pack_ms = graph_ms(lambda: torch.cat([rot_c.reshape(BATCH, 24, 9), t_c], dim=-1))
+    # ops/csrc/blend_floor.cu: the kernel's blend FMAs alone, every operand
+    # in a register, at B = 32 and 64 (the least the CUDA cores take for it).
+    floor_lib = build.library("blend_floor")
+    floor_lib.blend_floor.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+    def blend_floor(b):
+        err = floor_lib.blend_floor(sink.data_ptr(), b, V, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"blend_floor launch failed ({err})")
+
+    blend_ms = {b: graph_ms(lambda: blend_floor(b)) for b in (BATCH, 64)}
+    log("skinning_yardsticks", batch=BATCH, v_posed_copy_ms=copy_ms, affine_pack_ms=pack_ms,
+        blend_registers_only_ms=blend_ms, card=smi)
+
+    # Device time of one wrapper call (one kernel launch) and of the plain
+    # version, each back to back with its inputs in L2, as on the main path
+    # where v_posed was just written; then the same calls issued eagerly
+    # from Python, one event pair over 200; then the kernel's time for each
+    # batch chunk, beside the chunk the wrapper picks.
+    timing = {}
+    for b, args in ((BATCH, main_args), (64, b64_args)):
+        nbytes, flops, bound_ms, bound_by = bound(b)
+        timing[b] = {
+            "ms": graph_ms(lambda: sk.skinning_forward(*args)),
+            "plain_ms": graph_ms(lambda: sk.skinning_reference(*args)),
+            "eager_ms": cuda_ms(lambda: sk.skinning_forward(*args), 200),
+            "plain_eager_ms": cuda_ms(lambda: sk.skinning_reference(*args), 200),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        by_chunk = {c: graph_ms(lambda: sk._launch(*args, chunk=c)) for c in (1, 2, 4)}
+        log("skinning_time", batch=b, vertices=V, **timing[b], bytes=nbytes, flops=flops,
+            share_of_bound=bound_ms / timing[b]["ms"], single_node_floor_ms=floor_ms,
+            chunk=sk.batch_chunk(b, V), ms_by_chunk=by_chunk, card=smi)
 
     # 4. main path
     torch.manual_seed(SEED)  # module initializers draw from torch's default generator
@@ -253,8 +312,11 @@ def main() -> int:
         "source": "inbed_pose_estimation_tpu_torch/ops/csrc/skinning.cu",
         "replaces": "inbed_pose_estimation_tpu/ops/pallas_lbs.py:31",
         "launches": counts["skinning"], "max_abs_err": err_main,
-        "ms": skin_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, flops_ms),
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations", "library_ms": None,
+        "ms": timing[BATCH]["ms"], "plain_ms": timing[BATCH]["plain_ms"], "bound_ms": timing[BATCH]["bound_ms"],
+        "bound_by": timing[BATCH]["bound_by"], "library_ms": None,
+        "eager_ms": timing[BATCH]["eager_ms"], "single_node_floor_ms": floor_ms,
+        "ms_b64": timing[64]["ms"], "plain_ms_b64": timing[64]["plain_ms"], "bound_ms_b64": timing[64]["bound_ms"],
+        "bound_by_b64": timing[64]["bound_by"], "eager_ms_b64": timing[64]["eager_ms"],
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,9 +4,10 @@
 
 `skinning` is what `smpl.model.lbs` calls.  For CUDA tensors it launches
 `csrc/skinning.cu` (the port of the TPU kernel `_skin_kernel` in the JAX
-package's `ops/pallas_lbs.py`) or raises; it takes the plain version
-`skinning_reference` only for tensors on the CPU.  Its gradient is the
-closed-form products of the JAX op's custom VJP, as plain tensor code.
+package's `ops/pallas_lbs.py`) once, reading A_rot and A_t in place through
+their strides, or raises; it takes the plain version `skinning_reference`
+only for tensors on the CPU.  Its gradient is the closed-form products of
+the JAX op's custom VJP, as plain tensor code.
 
 `launches` counts kernel launches; it is raised only where the kernel is
 launched, so a run can show that it went through the kernel.
@@ -52,28 +53,63 @@ def _check(v_posed, lbs_weights, A_rot, A_t):
         raise ValueError(f"skinning: empty input (B={B}, V={V})")
 
 
+# Launch geometry of csrc/skinning.cu: a block blends a tile of TILE_VERTICES
+# vertices for a chunk of at most MAX_CHUNK batch elements, and two blocks
+# fit on each of the card's NUM_SMS SMs.
+TILE_VERTICES = 448
+MAX_CHUNK = 4
+NUM_SMS = 132  # H100 SXM
+
+
+def batch_chunk(B, V):
+    """Batch elements per block: the smallest power of two up to MAX_CHUNK
+    whose grid fits in one wave of two blocks per SM (a larger chunk reads
+    W fewer times, a smaller one gives more blocks; past one wave the last
+    blocks run alone)."""
+    tiles = -(-V // TILE_VERTICES)
+    chunk = 1
+    while chunk < MAX_CHUNK and tiles * -(-B // chunk) > 2 * NUM_SMS:
+        chunk *= 2
+    return chunk
+
+
+def affine_strides(A_rot, A_t):
+    """Element strides the kernel reads the affines in place with:
+    A_rot's (b, j, m, n), then A_t's (b, j, m)."""
+    return (*A_rot.stride(), *A_t.stride())
+
+
 @functools.cache
 def _kernel():
     """The C entry points of csrc/skinning.cu, built and typed once per process."""
     lib = library("skinning")
-    lib.skinning_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.skinning_forward.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 7 + [ctypes.c_void_p] * 3
+                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.skinning_forward.restype = ctypes.c_int
     lib.skinning_error_string.argtypes = [ctypes.c_int]
     lib.skinning_error_string.restype = ctypes.c_char_p
     return lib.skinning_forward, lib.skinning_error_string
 
 
-def _launch(v_posed, lbs_weights, A_rot, A_t):
+def _launch(v_posed, lbs_weights, A_rot, A_t, chunk=None):
+    """One kernel launch; A_rot and A_t are read in place, whatever their strides.
+
+    `chunk` overrides `batch_chunk(B, V)`; chip_smoke.py times each chunk
+    with it.
+    """
     global launches
     if not (v_posed.is_contiguous() and lbs_weights.is_contiguous()):
         raise ValueError("skinning: v_posed and lbs_weights must be contiguous")
+    if lbs_weights.data_ptr() % 16:
+        raise ValueError("skinning: lbs_weights must start on a 16-byte boundary")
     B, V = v_posed.shape[0], v_posed.shape[1]
-    aff = torch.cat([A_rot.reshape(B, NUM_JOINTS, 9), A_t], dim=-1).contiguous()  # [B, 24, 12]
+    chunk = batch_chunk(B, V) if chunk is None else chunk
     out = torch.empty_like(v_posed)
     forward, error_string = _kernel()
     with torch.cuda.device(v_posed.device):  # launch under the tensors' device, on its current stream
         stream = torch.cuda.current_stream().cuda_stream
-        err = forward(aff.data_ptr(), v_posed.data_ptr(), lbs_weights.data_ptr(), out.data_ptr(), B, V, stream)
+        err = forward(A_rot.data_ptr(), A_t.data_ptr(), *affine_strides(A_rot, A_t), v_posed.data_ptr(),
+                      lbs_weights.data_ptr(), out.data_ptr(), B, V, chunk, stream)
     if err != 0:
         raise RuntimeError(f"skinning kernel launch failed: {error_string(err).decode()}")
     launches += 1

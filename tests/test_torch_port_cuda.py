@@ -30,7 +30,7 @@ def _inputs(seed, B, V, device):
     return [a.to(device) for a in (v, W, R, t)]
 
 
-@pytest.mark.parametrize("B,V", [(32, 6890), (3, 700), (1, 1)])
+@pytest.mark.parametrize("B,V", [(32, 6890), (64, 6890), (5, 6890), (33, 701), (3, 700), (1, 1)])
 def test_kernel_matches_reference(cuda, B, V):
     args = _inputs(0, B, V, cuda)
     before = sk.launches
@@ -51,10 +51,34 @@ def test_kernel_gradients_match_autograd_of_reference(cuda):
         torch.testing.assert_close(a.grad, r.grad, atol=2e-4, rtol=2e-4)
 
 
+@pytest.mark.parametrize("B,V", [(32, 6890), (5, 701)])
+def test_kernel_reads_strided_affines_in_place(cuda, B, V):
+    """A_rot and A_t as lbs passes them, views of one [B, 24, 4, 4] tensor:
+    the same output as their contiguous copies, in one launch."""
+    v, W, R, t = _inputs(4, B, V, cuda)
+    world = torch.zeros(B, 24, 4, 4, device=cuda)
+    world[..., :3, :3], world[..., :3, 3] = R, t
+    R_view, t_view = world[..., :3, :3], world[..., :3, 3]
+    assert not (R_view.is_contiguous() or t_view.is_contiguous())
+    before = sk.launches
+    out = sk.skinning(v, W, R_view, t_view)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1
+    assert torch.equal(out, sk.skinning(v, W, R, t))
+
+
 def test_kernel_rejects_non_contiguous(cuda):
     v, W, R, t = _inputs(2, 2, 64, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         sk.skinning(v.transpose(0, 1).contiguous().transpose(0, 1), W, R, t)
+
+
+def test_kernel_rejects_misaligned_weights(cuda):
+    v, W, R, t = _inputs(5, 2, 64, cuda)
+    shifted = torch.empty(64 * 24 + 1, device=cuda)[1:].view(64, 24)
+    shifted.copy_(W)
+    with pytest.raises(ValueError, match="16-byte"):
+        sk.skinning(v, shifted, R, t)
 
 
 def test_lbs_on_card_matches_cpu(cuda):

@@ -53,9 +53,11 @@ def test_mean_params_equal_jax():
         np.testing.assert_array_equal(got[k], ref[k])
 
 
-def test_skinning_reference_matches_jax_pallas_interpret():
-    """B=2, V=700: not a multiple of the TPU kernel's 512 tile."""
-    v, W, R, t = _skin_inputs(0, 2, 700)
+@pytest.mark.parametrize("B,V", [(2, 700), (5, 1000), (1, 1)])
+def test_skinning_reference_matches_jax_pallas_interpret(B, V):
+    """V not a multiple of the TPU kernel's 512 tile; B=5 not a multiple of
+    the CUDA kernel's batch chunk; B=V=1 the smallest call."""
+    v, W, R, t = _skin_inputs(0, B, V)
     ref = np.asarray(j_skinning(*(jnp.asarray(a) for a in (v, W, R, t)), interpret=True))
     args = [torch.from_numpy(a) for a in (v, W, R, t)]
     np.testing.assert_allclose(sk.skinning_reference(*args).numpy(), ref, atol=1e-5)
@@ -63,6 +65,38 @@ def test_skinning_reference_matches_jax_pallas_interpret():
     before = sk.launches
     np.testing.assert_allclose(sk.skinning(*args).numpy(), ref, atol=1e-5)
     assert sk.launches == before
+
+
+def test_affine_strides_address_strided_views():
+    """The kernel reads A_rot[b,j,m,n] at data + b*rb + j*rj + m*rm + n*rn and
+    A_t[b,j,m] at data + b*tb + j*tj + m*tm, with the strides the wrapper
+    passes: on the world[..., :3, :3] / world[..., :3, 3] views lbs hands
+    over and on contiguous copies, that formula must give every element."""
+    world = torch.arange(3 * 24 * 16, dtype=torch.float32).reshape(3, 24, 4, 4)
+    flat = world.reshape(-1)
+    views = (world[..., :3, :3], world[..., :3, 3])
+    for R, t in (views, tuple(a.contiguous() for a in views)):
+        rb, rj, rm, rn, tb, tj, tm = sk.affine_strides(R, t)
+        b, j, m, n = np.meshgrid(*(np.arange(d) for d in R.shape), indexing="ij")
+        r_src = R.reshape(-1) if R.is_contiguous() else flat[R.storage_offset():]
+        t_src = t.reshape(-1) if t.is_contiguous() else flat[t.storage_offset():]
+        np.testing.assert_array_equal(r_src.numpy()[b * rb + j * rj + m * rm + n * rn], R.numpy())
+        np.testing.assert_array_equal(t_src.numpy()[b[..., 0] * tb + j[..., 0] * tj + m[..., 0] * tm], t.numpy())
+    assert sk.affine_strides(*views) == (384, 16, 4, 1, 384, 16, 4)
+
+
+@pytest.mark.parametrize("B", [1, 5, 32, 33, 64, 200])
+@pytest.mark.parametrize("V", [1, 701, 6890])
+def test_batch_chunk_fills_one_wave(B, V):
+    """A power of two up to MAX_CHUNK: the smallest whose grid fits in one
+    wave of two blocks per SM (or MAX_CHUNK when none does)."""
+    c = sk.batch_chunk(B, V)
+    assert 1 <= c <= sk.MAX_CHUNK and c & (c - 1) == 0
+    tiles = -(-V // sk.TILE_VERTICES)
+    assert c == sk.MAX_CHUNK or tiles * -(-B // c) <= 2 * sk.NUM_SMS
+    assert c == 1 or tiles * -(-B // (c // 2)) > 2 * sk.NUM_SMS
+    if (B, V) in ((32, 6890), (64, 6890)):
+        assert tiles * -(-B // c) == 256  # 124 SMs run two blocks, none three
 
 
 def test_skinning_backward_matches_jax_vjp():
