@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's eval inference path on one CUDA card and check it.
+"""Run the PyTorch port's eval inference path and its training step on one
+CUDA card and check them.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card
 
@@ -16,7 +17,19 @@ Phases, in order; any failure exits non-zero before the last line:
      random weights, 2-pass cascade, final_recon=False) -> SMPL LBS -> J17
      -> MPJPE / PA-MPJPE through `make_inference_fn`, with the launch
      counts read around one call; its outputs checked against the plain
-     skinning on the card and against the CPU on a small input; images/s.
+     skinning on the card and against the CPU on a small input; images/s;
+  5. train step: cashmrV2 at full width with the train CLI's defaults
+     (batch 64, 224x224, float32, 2-pass cascade, lr 5e-5) and SMPLify in
+     the loop (100 Adam steps a stage), a 256-row fits store and a seeded
+     synthetic batch, through `make_train_step`: the skinning launches of
+     one step (6 + 2 * 100), finite loss and metrics, the batch's fits rows,
+     the parameters and the BatchNorm statistics changed; ms per step,
+     images/s and peak memory; the cascade's forward+backward, one SMPLify
+     call and the rest timed apart; the skinning backward per call; the
+     device's busy share of one step (torch.profiler); SMPLify through the
+     kernel against the plain skinning at batch 64; and the step on the
+     card against the CPU (float32, with float64 as the yardstick of
+     float32's own error) at a small size.
 Then the kernel table as one JSON line, the nvidia-smi line, and
 {"ok": true, "device": ...} as the last line.
 """
@@ -36,6 +49,13 @@ F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 MODEL, BATCH, RES, NUM_CAS_ITERS, SEED = "cashmrV2", 32, 224, 2, 0
 TIMED_CALLS = 20
 
+# Phase 5: the train CLI's defaults with SMPLify on; the small step that is
+# also run on the CPU.
+TRAIN_ARGS = ["--name", "chip_smoke", "--run_smplify"]
+SMALL_TRAIN_ARGS = TRAIN_ARGS + ["--img_res", "64", "--batch_size", "2", "--num_smplify_iters", "2"]
+FITS_ROWS, TIMED_STEPS, CHECK_SMPLIFY_ITERS = 256, 3, 5
+GRAD_LIMIT = 4.0
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -49,6 +69,263 @@ def check(cond: bool, msg: str) -> None:
 
 def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def train_batch(np, spec, batch_size, res, rows, seed):
+    """A synthetic batch with the keys one train step reads (NCHW images)."""
+    from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
+
+    r = np.random.default_rng(seed)
+    B = batch_size
+    batch = {m: r.normal(0, 1, (B, MODALITY_CHANNELS[m], res, res)) for m in spec.modalities}
+    batch.update({
+        "depth_img_uncover": r.normal(0, 1, (B, 1, res, res)),
+        "keypoints": np.concatenate([r.uniform(-0.8, 0.8, (B, 49, 2)), r.uniform(0.5, 1.0, (B, 49, 1))], -1),
+        "pose": r.normal(0, 0.2, (B, 72)),
+        "betas": r.normal(0, 0.5, (B, 10)),
+        "pose_3d": np.concatenate([r.normal(0, 0.3, (B, 24, 3)), np.ones((B, 24, 1))], -1),
+        "has_smpl": np.arange(B) % 2,  # half from the ground truth, half from the fits
+        "has_pose_3d": np.ones(B),
+        "is_flipped": r.integers(0, 2, B),
+        "rot_angle": r.uniform(-30, 30, B),
+        "sample_index": r.choice(rows, B, replace=False),
+    })
+    return {k: np.asarray(v, np.int64 if k == "sample_index" else np.float32) for k, v in batch.items()}
+
+
+def small_step(torch, np, device, dtype, feed_map, state_dict):
+    """One train step at SMALL_TRAIN_ARGS on `device` in `dtype` from the
+    weights `state_dict` (dropout off), with the cascade's feedback
+    `feed_map`: (metrics, gradients, BatchNorm statistics, fits) as float64
+    numpy arrays keyed by name."""
+    import dataclasses
+
+    from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
+    from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
+    from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step
+
+    options = build_parser().parse_args(SMALL_TRAIN_ARGS)
+    model, spec = build_model(MODEL, device=device, dropout_rate=0.0)
+    model.load_state_dict(state_dict)
+    model.to(dtype)
+    spec = dataclasses.replace(spec, cascade_feed_map=feed_map)
+    prior = synthetic_gmm_prior(device=device)
+    fits = np.random.default_rng(SEED).normal(0, 0.2, (FITS_ROWS, 82))
+    state = init_train_state(model, options, fits, seed=SEED, device=device)
+    step = make_train_step(model, spec, synthetic_smpl_model(SEED, device=device).to(dtype),
+                           type(prior)(*(t.to(dtype) for t in prior)), options, device=device)
+    state, metrics = step(state, train_batch(np, spec, options.batch_size, options.img_res, FITS_ROWS, SEED + 1))
+
+    def host(t):
+        return t.detach().double().cpu().numpy()
+
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: host(p.grad) for k, p in model.named_parameters()},
+            {k: host(b) for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))},
+            host(state.fits))
+
+
+def card_vs_cpu(torch, np, dev):
+    """The small step on the card against the CPU on the same weights, state
+    and batch, with and without the depth feedback.  Each gradient leaf of
+    the card is held to float32's own error on the CPU: its distance to the
+    CPU's float64 step within GRAD_LIMIT times the CPU float32 step's
+    distance plus 1e-4 of the leaf's norm.  The loss, metrics,
+    BatchNorm statistics and fits at the bounds the CPU tests hold the port
+    to against JAX (tests/test_torch_port_train_step.py)."""
+    from inbed_pose_estimation_tpu_torch.models import build_model
+
+    torch.manual_seed(SEED + 2)
+    cpu_model, _ = build_model(MODEL, device="cpu", dropout_rate=0.0)
+    weights = cpu_model.state_dict()
+    report = {}
+    for name, feed_map, rel, stat_tol in (("two_pass", (("depth", 2),), 1e-3, 3e-3),
+                                          ("two_pass_no_feedback", (), 1e-4, 5e-5)):
+        card = small_step(torch, np, dev, torch.float32, feed_map, weights)
+        cpu = small_step(torch, np, "cpu", torch.float32, feed_map, weights)
+        cpu64 = small_step(torch, np, "cpu", torch.float64, feed_map, weights)
+        metric_err = max(abs(card[0][k] / cpu[0][k] - 1) for k in cpu[0] if cpu[0][k] != 0)
+        floor = {k: np.linalg.norm(cpu[1][k] - cpu64[1][k]) + 1e-4 * np.linalg.norm(cpu64[1][k]) for k in cpu[1]}
+        grad_ratio = max(np.linalg.norm(card[1][k] - cpu64[1][k]) / floor[k] for k in cpu[1])
+        grad_ratio_to_cpu32 = max(np.linalg.norm(card[1][k] - cpu[1][k]) / floor[k] for k in cpu[1])
+        stat_err = max(float((np.abs(card[2][k] - cpu[2][k]) / (stat_tol + stat_tol * np.abs(cpu[2][k]))).max())
+                       for k in cpu[2])
+        fits_err = float(np.abs(card[3] - cpu[3]).max())
+        report[name] = {"metrics_max_rel_err": metric_err, "metrics_rtol": rel,
+                        "grad_err_to_float64_over_cpu_float32_err_max": grad_ratio, "grad_limit": GRAD_LIMIT,
+                        "grad_err_to_cpu_float32_over_cpu_float32_err_max": grad_ratio_to_cpu32,
+                        "bn_stats_err_over_tolerance_max": stat_err, "bn_stats_rtol_atol": stat_tol,
+                        "fits_max_abs_err": fits_err}
+        check(metric_err <= rel, f"card vs CPU ({name}): loss or a metric off by {metric_err:.3g} relative")
+        check(grad_ratio <= GRAD_LIMIT,
+              f"card vs CPU ({name}): a gradient leaf off by {grad_ratio:.3g}x float32's own error")
+        check(stat_err <= 1.0, f"card vs CPU ({name}): BatchNorm statistics off by {stat_err:.3g}x the tolerance")
+        check(fits_err <= 10 * rel, f"card vs CPU ({name}): fits off by {fits_err:.3g}")
+    return report
+
+
+def train_phase(torch, np, dev, smi, smpl, cuda_ms):
+    """Phase 5; returns the skinning launches of one train step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from inbed_pose_estimation_tpu_torch.fitting import make_smplify, synthetic_gmm_prior
+    from inbed_pose_estimation_tpu_torch.geometry import batch_rodrigues
+    from inbed_pose_estimation_tpu_torch.models import build_model, cascade_apply
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+    from inbed_pose_estimation_tpu_torch.train import (
+        FitsStore, build_parser, init_train_state, make_train_step, step_feed_keys,
+    )
+
+    options = build_parser().parse_args(TRAIN_ARGS)
+    B, N = options.batch_size, options.num_smplify_iters
+    torch.manual_seed(SEED + 1)
+    model, spec = build_model(MODEL, device=dev)
+    prior = synthetic_gmm_prior(device=dev)
+    store = FitsStore("synthetic", FITS_ROWS, device=dev)
+    state = init_train_state(model, options, store.array, seed=SEED, device=dev)
+    step = make_train_step(model, spec, smpl, prior, options, device=dev)
+    host = train_batch(np, spec, B, options.img_res, FITS_ROWS, SEED)
+    check(set(host) == step_feed_keys(spec), "the synthetic batch lacks a key the step reads")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    rows = batch["sample_index"]
+    params0 = [p.detach().clone() for p in model.parameters()]
+    stats0 = {k: b.clone() for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+    fits0 = state.fits.clone()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = sk.launches
+    log("train_step", model=MODEL, batch=B, res=options.img_res, num_cas_iters=options.num_cas_iters,
+        num_smplify_iters=N, lr=options.lr, fits_rows=FITS_ROWS, launches={"skinning": launches},
+        expected=6 + 2 * N, first_step_s=first_s, metrics={k: v.item() for k, v in metrics.items()})
+    check(launches == 6 + 2 * N, f"skinning launched {launches} times in one train step, expected {6 + 2 * N}")
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()), "train step: a non-finite loss or metric")
+    others = torch.ones(FITS_ROWS, dtype=torch.bool, device=dev)
+    others[rows] = False
+    fits_changed = int((state.fits[rows] != fits0[rows]).any(dim=1).sum())
+    check(fits_changed > 0, "train step: SMPLify changed none of the batch's fits rows")
+    check(torch.equal(state.fits[others], fits0[others]), "train step: fits rows outside the batch changed")
+    check(all(not torch.equal(a, p) for a, p in zip(params0, model.parameters())),
+          "train step: a parameter did not move")
+    stats = dict(model.named_buffers())
+    check(all(not torch.equal(v, stats[k]) for k, v in stats0.items()),
+          "train step: a BatchNorm statistic did not move")
+    log("train_step_check", fits_rows_changed=fits_changed, batch_rows=B, params_moved=len(params0),
+        bn_stats_moved=len(stats0))
+    del params0, stats0
+
+    # Steady state: back-to-back steps, CUDA events, one synchronize.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TIMED_STEPS):
+        state, metrics = step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    ms_step = start.elapsed_time(end) / TIMED_STEPS
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()), "timed train steps: a non-finite loss or metric")
+    log("train_throughput", ms_per_step=ms_step, host_ms_per_step=host_ms, images_per_s=1e3 * B / ms_step,
+        steps=TIMED_STEPS, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30, card=smi)
+
+    def events_ms(fn, reps):
+        fn()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    # Where the step's time goes: the cascade's forward+backward (train
+    # mode, both passes, gradients of every parameter), one SMPLify call as
+    # the step makes it, and the rest by difference.
+    params = list(model.parameters())
+    inputs = tuple(batch[k] for k in spec.modalities)
+
+    def cascade_fwd_bwd():
+        outs = cascade_apply(lambda mods, **kw: model(torch.cat(list(mods), dim=1), generator=state.generator, **kw),
+                             inputs, options.num_cas_iters, feed_map=spec.cascade_feed_map)
+        total = sum(o.rotmat.sum() + o.betas.sum() + o.cam.sum() + sum(r.mean() for r in o.recon.values())
+                    for o in outs)
+        torch.autograd.grad(total, params, allow_unused=True)
+
+    cascade_ms = events_ms(cascade_fwd_bwd, 2)
+    no_smplify_options = build_parser().parse_args([a for a in TRAIN_ARGS if a != "--run_smplify"])
+    no_smplify = make_train_step(model, spec, smpl, prior, no_smplify_options, device=dev)
+    step_without_smplify_ms = events_ms(lambda: no_smplify(state, batch), 2)
+    smplify = make_smplify(smpl, prior, num_iters=N)
+    kp = batch["keypoints"].clone()
+    kp[:, :, :2] = 0.5 * options.img_res * (kp[:, :, :2] + 1)
+    tz = 2 * 5000.0 / (options.img_res * 0.9)
+    fit_args = (batch["pose"] + 0.1, torch.zeros(B, 10, device=dev),
+                torch.tensor([[0.0, 0.0, tz]], device=dev).expand(B, 3).contiguous(),
+                torch.full((B, 2), options.img_res / 2.0, device=dev), kp)
+    smplify_ms = events_ms(lambda: smplify(*fit_args), 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        smplify(*fit_args)
+        torch.cuda.synchronize()
+    smplify_kernel_ms = sum(e.device_time_total for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    smplify_launches = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    del prof
+
+    # The skinning backward at the SMPLify batch, eager: as autograd calls
+    # it (lbs_weights needs no gradient) and with d_W as well.
+    gen = torch.Generator(dev).manual_seed(SEED)
+    V = smpl.v_template.shape[0]
+    bwd_args = (0.3 * torch.randn(B, V, 3, generator=gen, device=dev), smpl.lbs_weights,
+                batch_rodrigues(0.4 * torch.randn(B, 24, 3, generator=gen, device=dev)),
+                0.2 * torch.randn(B, 24, 3, generator=gen, device=dev), torch.randn(B, V, 3, generator=gen, device=dev))
+    bwd_ms = cuda_ms(lambda: sk.skinning_backward(*bwd_args, needs=(True, False, True, True)), 50)
+    bwd_all_ms = cuda_ms(lambda: sk.skinning_backward(*bwd_args), 50)
+
+    # Busy share: summed CUDA kernel time of one step over its wall time.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
+    kernel_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
+    log("train_breakdown", ms_per_step=ms_step, cascade_fwd_bwd_ms=cascade_ms, smplify_ms=smplify_ms,
+        step_without_smplify_ms=step_without_smplify_ms, smplify_in_step_ms=ms_step - step_without_smplify_ms,
+        rest_ms=step_without_smplify_ms - cascade_ms, smplify_iters_per_stage=N,
+        smplify_kernel_ms=smplify_kernel_ms, smplify_launches=smplify_launches,
+        skinning_backward_ms_b64=bwd_ms, skinning_backward_with_dW_ms_b64=bwd_all_ms,
+        profiled_step_ms=profiled_ms, kernel_ms=kernel_ms,
+        busy_share=kernel_ms / ms_step if kernel_ms > 0 else None,
+        busy_share_of_profiled_step=kernel_ms / profiled_ms if kernel_ms > 0 else None,
+        kernel_launches=sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+        top_kernels_ms=[[name[:80], ms] for name, ms in top],
+        top_host_ops_self_ms_calls=[[e.key[:60], e.self_cpu_time_total / 1e3, e.count] for e in host_ops], card=smi)
+    del prof, state
+
+    # SMPLify through the kernel against the plain skinning, batch 64.
+    fits_k = make_smplify(smpl, prior, num_iters=CHECK_SMPLIFY_ITERS)(*fit_args)
+    fits_p = make_smplify(smpl, prior, num_iters=CHECK_SMPLIFY_ITERS, skin=sk.skinning_reference)(*fit_args)
+    errs = {k: (getattr(fits_k, k) - getattr(fits_p, k)).abs().max().item()
+            for k in ("pose", "betas", "camera_translation")}
+    ref = fits_p.reprojection_loss
+    errs["reprojection_loss_rel"] = ((fits_k.reprojection_loss - ref).abs().max() / ref.abs().max()).item()
+    log("smplify_kernel_vs_plain", batch=B, iters=CHECK_SMPLIFY_ITERS, max_err=errs, tolerance=1e-4)
+    check(max(errs.values()) <= 1e-4, "SMPLify through the skinning kernel disagrees with the plain skinning")
+
+    log("train_card_vs_cpu", res=64, batch=2, smplify_iters=2, **card_vs_cpu(torch, np, dev))
+    return launches
 
 
 def main() -> int:
@@ -307,6 +584,9 @@ def main() -> int:
         cascade_forward_ms=forward_ms, lbs_ms=lbs_ms, cascade_flop=cascade_flop,
         cascade_tflop_per_s=cascade_flop / forward_ms / 1e9, card=smi)
 
+    # 5. train step
+    launches_train_step = train_phase(torch, np, dev, smi, smpl, cuda_ms)
+
     kernels = [{
         "name": "skinning", "route": "cuda",
         "source": "inbed_pose_estimation_tpu_torch/ops/csrc/skinning.cu",
@@ -317,6 +597,7 @@ def main() -> int:
         "eager_ms": timing[BATCH]["eager_ms"], "single_node_floor_ms": floor_ms,
         "ms_b64": timing[64]["ms"], "plain_ms_b64": timing[64]["plain_ms"], "bound_ms_b64": timing[64]["bound_ms"],
         "bound_by_b64": timing[64]["bound_by"], "eager_ms_b64": timing[64]["eager_ms"],
+        "launches_train_step": launches_train_step,
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

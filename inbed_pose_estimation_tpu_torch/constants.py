@@ -36,6 +36,7 @@ JOINT_NAMES = [
     "Jaw (H36M)", "Head (H36M)", "Nose", "Left Eye", "Right Eye",
     "Left Ear", "Right Ear",
 ]
+JOINT_IDS = {name: i for i, name in enumerate(JOINT_NAMES)}
 
 # Superset joint -> row of the extended SMPL joint set (45 smplx joints +
 # 9 extra regressed joints at indices 45..53).
@@ -60,6 +61,14 @@ JOINT_MAP_ARRAY = np.array([JOINT_MAP[n] for n in JOINT_NAMES], dtype=np.int32)
 
 # H36M regressor rows -> the 17 evaluation joints.
 H36M_TO_J17 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10, 0, 7, 9]
+
+# Left/right mirror of the 24 SMPL joints, and of the 72 axis-angle pose
+# entries (three per joint).
+SMPL_JOINTS_FLIP_PERM = [
+    0, 2, 1, 3, 5, 4, 6, 8, 7, 9, 11, 10, 12, 14, 13, 15, 17, 16, 19, 18,
+    21, 20, 23, 22,
+]
+SMPL_POSE_FLIP_PERM = [3 * j + k for j in SMPL_JOINTS_FLIP_PERM for k in range(3)]
 
 NUM_SMPL_JOINTS = 24
 NUM_BETAS = 10

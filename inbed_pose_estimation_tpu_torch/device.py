@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -29,3 +31,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+@functools.cache
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A constant tensor of `values` on `device`, made once per process.
+
+    Indexing a CUDA tensor with a Python list, or `torch.tensor(list,
+    device="cuda")`, copies the list to the card and waits for the copy on
+    every call; the fitting loop runs such code hundreds of times a step.
+    Callers must not write to the result.
+    """
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -1,9 +1,40 @@
-"""ResNet-50 feature trunk, NCHW, with the reference's parameter names."""
+"""ResNet-50 feature trunk, NCHW, with the reference's parameter names,
+and the BatchNorm2d that the port's models use."""
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch BatchNorm2d whose train-mode update of `running_var` uses the
+    biased batch variance, as flax's BatchNorm does.
+
+    Normalization and `running_mean` are torch's own (momentum 0.1 here is
+    flax's 0.9).  torch's fused kernel folds the unbiased variance
+    var * n / (n - 1) into the running variance it is given; it is given a
+    copy r1 of the old value r0, and with m the momentum
+
+        (1 - m) r0 + m var  =  r1 (n - 1) / n + r0 (1 - m) / n
+
+    is written into `running_var` afterwards, without another pass over
+    the activations.  (autograd keeps the copy it was given, so writing
+    `running_var` in place does not disturb the backward pass.)  The
+    state-dict names are torch's.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        self.num_batches_tracked.add_(1)
+        running_var = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, running_var, self.weight, self.bias, True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.mul_((1.0 - self.momentum) / n).add_(running_var, alpha=(n - 1) / n)
+        return out
 
 
 class Bottleneck(nn.Module):
@@ -12,16 +43,16 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1, project: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = None
         if project:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(planes * 4),
+                BatchNorm2d(planes * 4),
             )
 
     def forward(self, x):
@@ -51,7 +82,7 @@ class ResNet50Trunk(nn.Module):
     def __init__(self, in_channels: int):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.layer1 = _stage(64, 64, 3, 1)
         self.layer2 = _stage(256, 128, 4, 2)
         self.layer3 = _stage(512, 256, 6, 2)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .backbone import BatchNorm2d
+
 
 class ResBlock(nn.Module):
     """conv3-BN-ReLU-conv3-BN with identity residual."""
@@ -18,10 +20,10 @@ class ResBlock(nn.Module):
         super().__init__()
         self.body = nn.Sequential(
             nn.Conv2d(n, n, 3, padding=1, bias=False),
-            nn.BatchNorm2d(n),
+            BatchNorm2d(n),
             nn.ReLU(inplace=True),
             nn.Conv2d(n, n, 3, padding=1, bias=False),
-            nn.BatchNorm2d(n),
+            BatchNorm2d(n),
         )
 
     def forward(self, x):
@@ -33,7 +35,7 @@ def upsampler(n: int) -> nn.Sequential:
     return nn.Sequential(
         nn.Conv2d(n, 4 * n, 3, padding=1, bias=False),
         nn.PixelShuffle(2),
-        nn.BatchNorm2d(n),
+        BatchNorm2d(n),
     )
 
 

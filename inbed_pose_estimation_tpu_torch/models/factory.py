@@ -90,8 +90,10 @@ def get_spec(name: str) -> ModelSpec:
     return _SPECS[name]
 
 
-def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str | torch.device = "cuda"):
-    """Build a registered concat-family model on `device`, in eval mode.
+def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str | torch.device = "cuda",
+                dropout_rate: float = 0.5):
+    """Build a registered concat-family model on `device`, in eval mode;
+    `dropout_rate` is the IEF head's in training mode.
 
     Returns (module, spec).  Multi-trunk, fusion and Bodies-At-Rest models
     raise NotImplementedError: they are ROADMAP Queue 1 item 9.
@@ -103,5 +105,6 @@ def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str |
             f"model '{name}' ({spec.input_mode} input) is not ported yet: ROADMAP Queue 1 item 9"
         )
     mp = mean_params(smpl_mean_params)
-    module = HMRCore(spec.in_channels, mp["pose"], mp["shape"], mp["cam"], recon_heads=spec.recon_heads)
+    module = HMRCore(spec.in_channels, mp["pose"], mp["shape"], mp["cam"], recon_heads=spec.recon_heads,
+                    dropout_rate=dropout_rate)
     return module.to(dev).eval(), spec

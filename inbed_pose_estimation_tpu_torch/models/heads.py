@@ -9,7 +9,6 @@ on the model itself under those reference names (`add_ief_layers`).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 NPOSE = 24 * 6
@@ -26,13 +25,26 @@ def add_ief_layers(module: nn.Module, feat_dim: int = 2048) -> None:
         nn.init.xavier_uniform_(layer.weight, gain=0.01)
 
 
-def ief_regress(module: nn.Module, xf, pose, shape, cam, n_iter: int = 3):
-    """Run the IEF loop with `module`'s layers; dropout is active only in
-    training mode.  Returns (pose6d [B,144], betas [B,10], cam [B,3])."""
+def dropout(x, rate: float, generator=None):
+    """Inverted dropout with the mask drawn from `generator` (torch's
+    default generator when None): x / (1 - rate) where kept, else 0."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    return x * mask / keep
+
+
+def ief_regress(module: nn.Module, xf, pose, shape, cam, n_iter: int = 3, dropout_rate: float = 0.5,
+                generator=None):
+    """Run the IEF loop with `module`'s layers; dropout (at `dropout_rate`,
+    masks from `generator`) is active only in training mode.  Returns
+    (pose6d [B,144], betas [B,10], cam [B,3])."""
+    rate = dropout_rate if module.training else 0.0
     for _ in range(n_iter):
         xc = torch.cat([xf, pose, shape, cam], dim=1)
-        xc = F.dropout(module.fc1(xc), 0.5, module.training)
-        xc = F.dropout(module.fc2(xc), 0.5, module.training)
+        xc = dropout(module.fc1(xc), rate, generator)
+        xc = dropout(module.fc2(xc), rate, generator)
         pose = module.decpose(xc) + pose
         shape = module.decshape(xc) + shape
         cam = module.deccam(xc) + cam

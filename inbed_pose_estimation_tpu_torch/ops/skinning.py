@@ -36,6 +36,8 @@ def skinning_reference(v_posed, lbs_weights, A_rot, A_t):
 
 def _check(v_posed, lbs_weights, A_rot, A_t):
     B, V = v_posed.shape[0], v_posed.shape[1]
+    if v_posed.dtype != torch.float32 and not (v_posed.dtype == torch.float64 and v_posed.device.type == "cpu"):
+        raise TypeError(f"skinning: v_posed is {v_posed.dtype}, expected torch.float32 (or float64 on the CPU)")
     shapes = {
         "v_posed": (v_posed, (B, V, 3)),
         "lbs_weights": (lbs_weights, (V, NUM_JOINTS)),
@@ -45,8 +47,8 @@ def _check(v_posed, lbs_weights, A_rot, A_t):
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"skinning: {name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"skinning: {name} is {t.dtype}, expected torch.float32")
+        if t.dtype != v_posed.dtype:
+            raise TypeError(f"skinning: {name} is {t.dtype}, v_posed {v_posed.dtype}")
         if t.device != v_posed.device:
             raise ValueError(f"skinning: {name} is on {t.device}, v_posed on {v_posed.device}")
     if B == 0 or V == 0:
@@ -126,18 +128,28 @@ def skinning_forward(v_posed, lbs_weights, A_rot, A_t):
     raise ValueError(f"skinning: unsupported device {v_posed.device}")
 
 
-def skinning_backward(v_posed, lbs_weights, A_rot, A_t, g):
-    """Closed-form cotangents of the bilinear op (the JAX `_skinning_bwd`)."""
+def skinning_backward(v_posed, lbs_weights, A_rot, A_t, g, needs=(True, True, True, True)):
+    """Closed-form cotangents of the bilinear op (the JAX `_skinning_bwd`).
+
+    `needs` says which of (d_v, d_W, d_rot, d_t) to compute; the others are
+    None.  SMPL's lbs_weights is a buffer, so autograd never asks for d_W,
+    the costliest of the four.
+    """
     W = lbs_weights
-    # d v_posed[b,v,n] = sum_j W[v,j] A_rot[b,j,m,n] g[b,v,m]
-    R_blend = torch.einsum("vj,bjmn->bvmn", W, A_rot)
-    d_v = torch.einsum("bvmn,bvm->bvn", R_blend, g)
-    # d A_rot[b,j,m,n] = sum_v W[v,j] g[b,v,m] v_posed[b,v,n]
-    d_rot = torch.einsum("vj,bvm,bvn->bjmn", W, g, v_posed)
-    # d A_t[b,j,m] = sum_v W[v,j] g[b,v,m]
-    d_t = torch.einsum("vj,bvm->bjm", W, g)
-    # d W[v,j] = sum_{b,m} g[b,v,m] (A_rot[b,j] @ v_posed[b,v] + A_t[b,j])[m]
-    d_W = torch.einsum("bvm,bjmn,bvn->vj", g, A_rot, v_posed) + torch.einsum("bvm,bjm->vj", g, A_t)
+    d_v = d_W = d_rot = d_t = None
+    if needs[0]:
+        # d v_posed[b,v,n] = sum_j W[v,j] A_rot[b,j,m,n] g[b,v,m]
+        R_blend = torch.einsum("vj,bjmn->bvmn", W, A_rot)
+        d_v = torch.einsum("bvmn,bvm->bvn", R_blend, g)
+    if needs[1]:
+        # d W[v,j] = sum_{b,m} g[b,v,m] (A_rot[b,j] @ v_posed[b,v] + A_t[b,j])[m]
+        d_W = torch.einsum("bvm,bjmn,bvn->vj", g, A_rot, v_posed) + torch.einsum("bvm,bjm->vj", g, A_t)
+    if needs[2]:
+        # d A_rot[b,j,m,n] = sum_v W[v,j] g[b,v,m] v_posed[b,v,n]
+        d_rot = torch.einsum("vj,bvm,bvn->bjmn", W, g, v_posed)
+    if needs[3]:
+        # d A_t[b,j,m] = sum_v W[v,j] g[b,v,m]
+        d_t = torch.einsum("vj,bvm->bjm", W, g)
     return d_v, d_W, d_rot, d_t
 
 
@@ -149,14 +161,15 @@ class _Skinning(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return skinning_backward(*ctx.saved_tensors, g.contiguous())
+        return skinning_backward(*ctx.saved_tensors, g.contiguous(), needs=ctx.needs_input_grad)
 
 
 def skinning(v_posed, lbs_weights, A_rot, A_t):
     """Blend-skin posed vertices, differentiably.
 
     v_posed [B, V, 3], lbs_weights [V, 24], A_rot [B, 24, 3, 3] (rest-pose
-    corrected joint rotations), A_t [B, 24, 3]; all float32 on one device.
+    corrected joint rotations), A_t [B, 24, 3]; all float32 on one device
+    (the kernel's type; the plain version on the CPU also takes float64).
     Returns [B, V, 3].
     """
     return _Skinning.apply(v_posed, lbs_weights, A_rot, A_t)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import constant
 from ..geometry import batch_rodrigues
 from ..ops.skinning import skinning
 
@@ -74,7 +75,7 @@ def _kinematic_chain(rot_mats, joints, model: SMPLModel):
     B = rot_mats.shape[0]
     rel_joints = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, model.parent_index]], dim=1)
     top = torch.cat([rot_mats, rel_joints[..., None]], dim=-1)                    # [B, 24, 3, 4]
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype, device=rot_mats.device)
+    bottom = constant((0.0, 0.0, 0.0, 1.0), rot_mats.dtype, rot_mats.device)
     local = torch.cat([top, bottom.expand(B, rot_mats.shape[1], 1, 4)], dim=-2)  # [B, 24, 4, 4]
     world = [local[:, 0]]
     for j in range(1, rot_mats.shape[1]):
@@ -109,17 +110,18 @@ def lbs(model: SMPLModel, betas, rot_mats, skin=skinning):
     return verts, joints24
 
 
-def smpl_forward(model: SMPLModel, betas, rot_mats=None, pose_aa=None) -> SMPLOutput:
+def smpl_forward(model: SMPLModel, betas, rot_mats=None, pose_aa=None, skin=skinning) -> SMPLOutput:
     """SMPL forward with the 49-joint superset: 24 kinematic + 21 vertex
     joints + 9 extra regressed joints, gathered through `joint_map`.
 
     Give exactly one of `rot_mats` [B, 24, 3, 3] or `pose_aa` [B, 72].
+    `skin` is passed on to `lbs`.
     """
     if (rot_mats is None) == (pose_aa is None):
         raise ValueError("smpl_forward: give exactly one of rot_mats or pose_aa")
     if rot_mats is None:
         rot_mats = batch_rodrigues(pose_aa.reshape(-1, 24, 3))
-    verts, joints24 = lbs(model, betas, rot_mats)
+    verts, joints24 = lbs(model, betas, rot_mats, skin=skin)
     vertex_joints = verts[:, model.vertex_joint_ids]                               # [B, 21, 3]
     extra = torch.einsum("jv,bvc->bjc", model.J_regressor_extra, verts)            # [B, 9, 3]
     joints54 = torch.cat([joints24, vertex_joints, extra], dim=1)

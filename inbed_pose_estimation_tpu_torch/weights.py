@@ -8,6 +8,10 @@ scale / bias / mean / var -> weight / bias / running_mean / running_var.
 It maps the reference state-dict names of the HMRCore family the same way
 the JAX package's checkpoint converter does, and raises on any name or
 leaf left unmapped.
+
+`load_jax_adam_state` carries optax's Adam moments into a
+`torch.optim.Adam` over the same module, and `train_state_from_jax` builds
+a port `TrainState` from a JAX one (params, batch_stats, Adam, fits, step).
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from .train.trainer import init_train_state
 
 # Buffers with no flax counterpart besides BN's `num_batches_tracked`: the
 # IEF mean parameters, fixed by the model's construction.
@@ -135,3 +141,59 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     if unused:
         raise ValueError(f"load_jax_variables: {len(unused)} flax leaves not taken by the module: {unused[:8]}")
     return module
+
+
+def _adam_moments(opt_state):
+    """The ScaleByAdamState (count, mu, nu) of an optax Adam state: the
+    state itself, or the first element of optax.adam's chain tuple."""
+    return opt_state if hasattr(opt_state, "mu") else opt_state[0]
+
+
+@torch.no_grad()
+def load_jax_adam_state(module: nn.Module, optimizer: torch.optim.Adam, opt_state) -> torch.optim.Adam:
+    """Write optax Adam moments into `optimizer`, an Adam over
+    `module.parameters()`: mu -> exp_avg, nu -> exp_avg_sq (kernels
+    transposed as `load_jax_variables` does) and count -> step.
+
+    Raises ValueError for a parameter with no flax mapping or no moment, a
+    shape that disagrees, or a moment leaf that no parameter takes.
+    """
+    adam = _adam_moments(opt_state)
+    mu, nu = _flatten(adam.mu), _flatten(adam.nu)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    owner = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    used = set()
+    for key, param in module.named_parameters():
+        if id(param) not in owner:
+            raise ValueError(f"load_jax_adam_state: parameter '{key}' is not in the optimizer")
+        mapped = flax_path(key)
+        if mapped is None or mapped[2] != "params":
+            raise ValueError(f"load_jax_adam_state: no flax parameter for '{key}'")
+        path, leaf, _ = mapped
+        src = path + (leaf,)
+        if src not in mu or src not in nu:
+            raise ValueError(f"load_jax_adam_state: '{key}' maps to {'/'.join(src)}, absent from the Adam state")
+        moments = []
+        for tree in (mu, nu):
+            arr = _to_torch_layout(np.array(tree[src], dtype=np.float32), leaf)
+            if tuple(arr.shape) != tuple(param.shape):
+                raise ValueError(f"load_jax_adam_state: '{key}' has shape {tuple(param.shape)}, flax {arr.shape}")
+            moments.append(torch.from_numpy(np.ascontiguousarray(arr)).to(param.device))
+        optimizer.state[param] = {"step": step.clone(), "exp_avg": moments[0], "exp_avg_sq": moments[1]}
+        used.add(src)
+    unused = sorted("/".join(k) for k in set(mu) - used)
+    if unused:
+        raise ValueError(f"load_jax_adam_state: {len(unused)} moment leaves not taken by the module: {unused[:8]}")
+    return optimizer
+
+
+def train_state_from_jax(model: nn.Module, jax_state, options, seed: int = 0, device: str | torch.device = "cuda"):
+    """A port `TrainState` from a JAX `TrainState`: params and batch_stats
+    into `model`, the Adam moments and count into a fresh optimizer, the
+    fits store and the step.  JAX's PRNG key has no torch counterpart: the
+    dropout generator is seeded with `seed`."""
+    load_jax_variables(model, {"params": jax_state.params, "batch_stats": jax_state.batch_stats})
+    state = init_train_state(model, options, np.asarray(jax_state.fits), seed=seed, device=device)
+    load_jax_adam_state(model, state.optimizer, jax_state.opt_state)
+    state.step = int(np.asarray(jax_state.step))
+    return state

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the CUDA skinning kernel against its plain
-version.  Every test needs a CUDA device and skips without one (a CUDA
+version, SMPLify through it, and the training step on the card against
+the CPU.  Every test needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode); run them on the card with
 `python -m pytest tests/test_torch_port_cuda.py -m cuda`."""
 
@@ -89,3 +90,97 @@ def test_lbs_on_card_matches_cpu(cuda):
     gpu_v, gpu_j = lbs(synthetic_smpl_model(0, device=cuda), betas.to(cuda), rot.to(cuda))
     torch.testing.assert_close(gpu_v.cpu(), cpu_v, atol=1e-5, rtol=0)
     torch.testing.assert_close(gpu_j.cpu(), cpu_j, atol=1e-5, rtol=0)
+
+
+def _smplify_args(B, device, seed=0):
+    rng = np.random.default_rng(seed)
+    pose = torch.from_numpy(rng.normal(0, 0.2, (B, 72)).astype(np.float32))
+    kp = np.concatenate([rng.uniform(20, 204, (B, 49, 2)), rng.uniform(0.5, 1, (B, 49, 1))], -1).astype(np.float32)
+    cam_t = torch.tensor([[0.0, 0.0, 2 * 5000.0 / (224 * 0.9)]]).expand(B, 3)
+    return [a.to(device) for a in (pose, torch.zeros(B, 10), cam_t, torch.full((B, 2), 112.0), torch.from_numpy(kp))]
+
+
+def test_smplify_kernel_matches_plain_at_b64(cuda):
+    """SMPLify at the training batch, 5 Adam steps a stage, through the
+    kernel and through the plain skinning on the same inputs."""
+    from inbed_pose_estimation_tpu_torch.fitting import make_smplify, synthetic_gmm_prior
+
+    smpl, prior = synthetic_smpl_model(0, device=cuda), synthetic_gmm_prior(device=cuda)
+    args = _smplify_args(64, cuda)
+    before = sk.launches
+    got = make_smplify(smpl, prior, num_iters=5)(*args)
+    torch.cuda.synchronize()
+    assert sk.launches - before == 2 * 5 + 1
+    want = make_smplify(smpl, prior, num_iters=5, skin=sk.skinning_reference)(*args)
+    for name in ("pose", "betas", "camera_translation"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), atol=1e-4, rtol=0, msg=name)
+    ref = want.reprojection_loss
+    assert (got.reprojection_loss - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def _small_step(device, dtype, feed_map, weights, num_smplify_iters=2):
+    """One train step at RES 64, batch 2, SMPLify on, dropout off, from
+    `weights`: (metrics, gradients, BatchNorm statistics) as float64 numpy."""
+    import dataclasses
+
+    from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
+    from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step
+
+    options = build_parser().parse_args(["--name", "t", "--run_smplify", "--img_res", "64", "--batch_size", "2",
+                                         "--num_smplify_iters", str(num_smplify_iters)])
+    model, spec = build_model("cashmrV2", device=device, dropout_rate=0.0)
+    model.load_state_dict(weights)
+    model.to(dtype)
+    spec = dataclasses.replace(spec, cascade_feed_map=feed_map)
+    prior = synthetic_gmm_prior(device=device)
+    r = np.random.default_rng(1)
+    batch = {m: r.normal(0, 1, (2, 3 if m == "img" else 1, 64, 64)) for m in spec.modalities + ("depth_img_uncover",)}
+    batch.update(keypoints=np.concatenate([r.uniform(-0.8, 0.8, (2, 49, 2)), np.ones((2, 49, 1))], -1),
+                 pose=r.normal(0, 0.2, (2, 72)), betas=r.normal(0, 0.5, (2, 10)),
+                 pose_3d=np.concatenate([r.normal(0, 0.3, (2, 24, 3)), np.ones((2, 24, 1))], -1),
+                 has_smpl=np.array([1.0, 0.0]), has_pose_3d=np.ones(2), is_flipped=np.array([0.0, 1.0]),
+                 rot_angle=np.array([10.0, -5.0]), sample_index=np.array([3, 9]))
+    state = init_train_state(model, options, np.zeros((16, 82)), device=device)
+    step = make_train_step(model, spec, synthetic_smpl_model(0, device=device).to(dtype),
+                           type(prior)(*(t.to(dtype) for t in prior)), options, device=device)
+    state, metrics = step(state, batch)
+    host = lambda t: t.detach().double().cpu().numpy()  # noqa: E731
+    return ({k: float(v) for k, v in metrics.items()}, {k: host(p.grad) for k, p in model.named_parameters()},
+            {k: host(b) for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))})
+
+
+@pytest.mark.parametrize("feed", ["two_pass", "two_pass_no_feedback"])
+def test_train_step_on_card_matches_cpu(cuda, feed):
+    """The step on the card against the CPU on the same weights and batch:
+    loss and metrics; each gradient leaf's distance to the CPU's float64
+    step within 4x the CPU float32 step's distance plus 1e-4 of its norm
+    (cuDNN's convolution algorithms round differently from the CPU's); and
+    the BatchNorm statistics, at the bounds tests/test_torch_port_train_step.py
+    holds the port to against JAX."""
+    from inbed_pose_estimation_tpu_torch.models import build_model
+
+    feed_map, rel, stat_tol = {"two_pass": ((("depth", 2),), 1e-3, 3e-3),
+                               "two_pass_no_feedback": ((), 1e-4, 5e-5)}[feed]
+    torch.manual_seed(0)
+    weights = build_model("cashmrV2", device="cpu", dropout_rate=0.0)[0].state_dict()
+    card = _small_step(cuda, torch.float32, feed_map, weights)
+    cpu = _small_step("cpu", torch.float32, feed_map, weights)
+    cpu64 = _small_step("cpu", torch.float64, feed_map, weights)
+    for k, v in cpu[0].items():
+        assert card[0][k] == pytest.approx(v, rel=rel), k
+    for k, g in cpu[1].items():
+        floor = np.linalg.norm(g - cpu64[1][k]) + 1e-4 * np.linalg.norm(cpu64[1][k])
+        assert np.linalg.norm(card[1][k] - cpu64[1][k]) <= 4 * floor, k
+    for k, v in cpu[2].items():
+        np.testing.assert_allclose(card[2][k], v, rtol=stat_tol, atol=stat_tol, err_msg=k)
+
+
+def test_train_step_launches_the_kernel_6_plus_2n_times(cuda):
+    from inbed_pose_estimation_tpu_torch.models import build_model
+
+    torch.manual_seed(0)
+    weights = build_model("cashmrV2", device="cpu", dropout_rate=0.0)[0].state_dict()
+    before = sk.launches
+    _small_step(cuda, torch.float32, (("depth", 2),), weights, num_smplify_iters=3)
+    assert sk.launches - before == 6 + 2 * 3

@@ -137,6 +137,14 @@ def test_skinning_rejects_bad_inputs(bad):
         sk.skinning(v, W, R, t)
 
 
+def test_skinning_takes_float64_on_the_cpu():
+    """The plain version in float64 (the yardstick of float32's own error
+    in the train-step tests); mixed types are refused."""
+    args = [torch.from_numpy(a).double() for a in _skin_inputs(6, 2, 50)]
+    torch.testing.assert_close(sk.skinning(*args), sk.skinning_reference(*args), rtol=0, atol=0)
+    assert sk.skinning(*args).dtype == torch.float64
+
+
 def _pose(seed, B):
     rng = np.random.default_rng(seed)
     betas = rng.normal(0, 1.0, (B, 10)).astype(np.float32)
@@ -176,3 +184,42 @@ def test_smpl_forward_needs_exactly_one_pose(smpl_pair):
     _, tm = smpl_pair
     with pytest.raises(ValueError):
         smpl_forward(tm, torch.zeros(1, 10))
+
+
+@pytest.mark.parametrize("needs", [(True, False, True, True), (False, False, True, True),
+                                   (True, True, False, False), (True, True, True, True)],
+                         ids=["buffer_W", "fixed_shape", "W_only_plus_v", "all"])
+def test_skinning_backward_computes_only_what_is_needed(needs):
+    """The cotangents autograd asks for equal the full closed form; the
+    others are None.  With W a buffer (SMPL's lbs_weights) W gets no
+    gradient and d_W is never computed."""
+    v, W, R, t = _skin_inputs(8, 2, 300)
+    g = torch.from_numpy(np.random.default_rng(9).normal(0, 1, v.shape).astype(np.float32))
+    full = sk.skinning_backward(*(torch.from_numpy(a) for a in (v, W, R, t)), g)
+    args = [torch.from_numpy(a).requires_grad_(n) for a, n in zip((v, W, R, t), needs)]
+    sk.skinning(*args).backward(g)
+    for a, n, ref, name in zip(args, needs, full, ("d_v", "d_W", "d_rot", "d_t")):
+        if n:
+            torch.testing.assert_close(a.grad, ref, rtol=0, atol=0, msg=name)
+        else:
+            assert a.grad is None, name
+    part = sk.skinning_backward(*(torch.from_numpy(a) for a in (v, W, R, t)), g, needs=needs)
+    assert [p is None for p in part] == [not n for n in needs]
+
+
+def test_lbs_gradient_skips_the_weights(smpl_pair):
+    """Through lbs the weights are a buffer: betas and rotations get their
+    gradients, lbs_weights none, and the backward matches the plain einsum
+    path's autograd."""
+    _, tm = smpl_pair
+    betas, aa = _pose(10, 2)
+    grads = []
+    for skin in (sk.skinning, sk.skinning_reference):
+        b = torch.from_numpy(betas).requires_grad_(True)
+        a = torch.from_numpy(aa).requires_grad_(True)
+        out = smpl_forward(tm, b, pose_aa=a, skin=skin)
+        (out.vertices.square().sum() + out.joints.sum()).backward()
+        grads.append((b.grad, a.grad))
+    assert tm.lbs_weights.grad is None and not tm.lbs_weights.requires_grad
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)

@@ -11,8 +11,10 @@ import torch
 import inbed_pose_estimation_tpu_torch as port
 from inbed_pose_estimation_tpu_torch.device import resolve_device
 from inbed_pose_estimation_tpu_torch.evaluation import make_inference_fn
+from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
 from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
+from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step
 
 PORT_DIR = pathlib.Path(port.__file__).parent
 REPO = PORT_DIR.parent
@@ -52,7 +54,8 @@ def test_resolve_device_raises_without_cuda_and_pins_f32(monkeypatch):
     assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
-@pytest.mark.parametrize("entry", ["build_model", "synthetic_smpl_model", "make_inference_fn"])
+@pytest.mark.parametrize("entry", ["build_model", "synthetic_smpl_model", "make_inference_fn", "synthetic_gmm_prior",
+                                   "make_train_step", "init_train_state"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
     _cuda_missing(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -60,6 +63,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
             build_model("hmr")
         elif entry == "synthetic_smpl_model":
             synthetic_smpl_model(0)
-        else:
+        elif entry == "synthetic_gmm_prior":
+            synthetic_gmm_prior()
+        elif entry == "make_inference_fn":
             model, spec = build_model("hmr", device="cpu")
             make_inference_fn(model, spec, synthetic_smpl_model(0, device="cpu"), np.zeros((17, 6890), np.float32))
+        else:
+            model, spec = build_model("hmr", device="cpu")
+            options = build_parser().parse_args(["--name", "x"])
+            if entry == "make_train_step":
+                make_train_step(model, spec, synthetic_smpl_model(0, device="cpu"), synthetic_gmm_prior(device="cpu"),
+                                options)
+            else:
+                init_train_state(model, options, np.zeros((4, 82), np.float32))
