@@ -1,8 +1,9 @@
-"""Training options: the port's copy of the JAX package's `build_parser`,
-with the same names and defaults, so a configuration means the same in
-both.  The train step reads the loss weights, `lr`, `img_res`,
-`num_cas_iters`, `run_smplify`, `num_smplify_iters` and
-`smplify_threshold`; the rest serve the epoch loop and the train CLI.
+"""Training options: the options of the JAX package's `build_parser` that
+the port's train step reads, with the same names and defaults, so a
+configuration means the same in both.  `batch_size` is the size of the
+batches the caller builds.  Options of the epoch loop, the data side and
+the runtime (`--dtype`, `--remat`, `--uint8_feed`, ...) are not accepted
+until the port implements them (ROADMAP Queue 1 items 6-7).
 """
 
 from __future__ import annotations
@@ -11,78 +12,18 @@ import argparse
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="inbed_pose_estimation_tpu_torch training")
-    req = p.add_argument_group("Required")
-    req.add_argument("--name", required=True, help="Name of the experiment")
-
-    gen = p.add_argument_group("General")
-    gen.add_argument("--time_to_run", type=int, default=3600000,
-                     help="Total time to run in seconds (graceful checkpoint+exit)")
-    gen.add_argument("--resume", dest="resume", default=False, action="store_true",
-                     help="Resume from latest checkpoint (incl. mid-epoch position)")
-    gen.add_argument("--num_workers", type=int, default=8, help="Host decode threads")
-    gen.add_argument("--ngpu", type=int, default=1, help="Number of GPUs")
-    gen.add_argument("--pin_memory", dest="pin_memory", default=True, action="store_true")
-    gen.add_argument("--no_pin_memory", dest="pin_memory", action="store_false")
-    gen.add_argument("--allow_synthetic_assets", default=False, action="store_true",
-                     help="Run with synthetic SMPL/prior stand-ins when real "
-                          "assets are missing (training NOT reference-comparable)")
-
-    io = p.add_argument_group("io")
-    io.add_argument("--log_dir", default="logs", help="Directory to store logs")
-    io.add_argument("--checkpoint", default=None, help="Path to checkpoint")
-    io.add_argument("--from_json", default=None, help="Load options from json file")
-    io.add_argument("--pretrained_checkpoint", default=None,
-                    help="Load a pretrained checkpoint at the beginning of training")
-    io.add_argument("--pretrained_fusion_checkpoint", default=None,
-                    help="Pretrained ir_depth_fusion checkpoint, used frozen inside the "
-                         "ir_depth_pm_fusion / ir_depth_pm_rgb_fusion pipelines")
-
+    p = argparse.ArgumentParser(description="inbed_pose_estimation_tpu_torch training step")
     tr = p.add_argument_group("Training Options")
-    tr.add_argument("--model", default="cashmrV2", help="Model architecture name")
-    tr.add_argument("--data_train", default="slp-4mod-train")
-    tr.add_argument("--data_test", default="slp-4mod-uncover+slp-4mod-cover1+slp-4mod-cover2",
-                    help="'+'-joined eval split names")
-    tr.add_argument("--num_epochs", type=int, default=200)
     tr.add_argument("--lr", type=float, default=5e-5)
     tr.add_argument("--batch_size", type=int, default=64)
-    tr.add_argument("--summary_steps", type=int, default=25)
-    tr.add_argument("--test_steps", type=int, default=200000)
-    tr.add_argument("--checkpoint_steps", type=int, default=200000)
     tr.add_argument("--img_res", type=int, default=224)
-    tr.add_argument("--rot_factor", type=float, default=15)
-    tr.add_argument("--noise_factor", type=float, default=0.4)
-    tr.add_argument("--scale_factor", type=float, default=0.15)
-    tr.add_argument("--ignore_3d", default=False, action="store_true")
     tr.add_argument("--shape_loss_weight", type=float, default=0)
     tr.add_argument("--keypoint_loss_weight", type=float, default=5.0)
-    tr.add_argument("--pose_loss_weight", type=float, default=1.0)
     tr.add_argument("--beta_loss_weight", type=float, default=0.001)
     tr.add_argument("--openpose_train_weight", type=float, default=0.0)
     tr.add_argument("--gt_train_weight", type=float, default=1.0)
     tr.add_argument("--run_smplify", default=False, action="store_true")
     tr.add_argument("--smplify_threshold", type=float, default=100.0)
     tr.add_argument("--num_smplify_iters", type=int, default=100)
-    tr.add_argument("--no_render", default=False, action="store_true")
     tr.add_argument("--num_cas_iters", type=int, default=2)
-    tr.add_argument("--mod1_epoch", type=int, default=50)
-    shuf = tr.add_mutually_exclusive_group()
-    shuf.add_argument("--shuffle_train", dest="shuffle_train", action="store_true")
-    shuf.add_argument("--no_shuffle_train", dest="shuffle_train", action="store_false")
-    p.set_defaults(shuffle_train=True)
-
-    rt = p.add_argument_group("Runtime Options")
-    rt.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                    help="Model compute dtype (params stay float32)")
-    rt.add_argument("--seed", type=int, default=0)
-    rt.add_argument("--remat", nargs="?", const="stage", default=False, choices=["stage", "decoder"],
-                    help="Recompute on the backward pass: whole cascade stages ('stage', the bare "
-                         "flag) or only the reconstruction decoders ('decoder')")
-    rt.add_argument("--fast_preprocess", default=False, action="store_true",
-                    help="Native C++ fused crop+resize+rotate for host preprocessing")
-    rt.add_argument("--crop_cache", default=None,
-                    help="Directory of a pre-decoded crop cache (replaces the image decodes)")
-    rt.add_argument("--uint8_feed", default=True, action=argparse.BooleanOptionalAction,
-                    help="Ship post-crop uint8 images to the device and fuse noise+normalize "
-                         "into the train step; --no-uint8_feed feeds host-normalized float32")
     return p

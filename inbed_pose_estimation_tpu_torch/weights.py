@@ -10,8 +10,7 @@ the JAX package's checkpoint converter does, and raises on any name or
 leaf left unmapped.
 
 `load_jax_adam_state` carries optax's Adam moments into a
-`torch.optim.Adam` over the same module, and `train_state_from_jax` builds
-a port `TrainState` from a JAX one (params, batch_stats, Adam, fits, step).
+`torch.optim.Adam` over the same module.
 """
 
 from __future__ import annotations
@@ -22,8 +21,6 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-
-from .train.trainer import init_train_state
 
 # Buffers with no flax counterpart besides BN's `num_batches_tracked`: the
 # IEF mean parameters, fixed by the model's construction.
@@ -185,15 +182,3 @@ def load_jax_adam_state(module: nn.Module, optimizer: torch.optim.Adam, opt_stat
     if unused:
         raise ValueError(f"load_jax_adam_state: {len(unused)} moment leaves not taken by the module: {unused[:8]}")
     return optimizer
-
-
-def train_state_from_jax(model: nn.Module, jax_state, options, seed: int = 0, device: str | torch.device = "cuda"):
-    """A port `TrainState` from a JAX `TrainState`: params and batch_stats
-    into `model`, the Adam moments and count into a fresh optimizer, the
-    fits store and the step.  JAX's PRNG key has no torch counterpart: the
-    dropout generator is seeded with `seed`."""
-    load_jax_variables(model, {"params": jax_state.params, "batch_stats": jax_state.batch_stats})
-    state = init_train_state(model, options, np.asarray(jax_state.fits), seed=seed, device=device)
-    load_jax_adam_state(model, state.optimizer, jax_state.opt_state)
-    state.step = int(np.asarray(jax_state.step))
-    return state

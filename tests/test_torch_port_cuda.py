@@ -118,16 +118,17 @@ def test_smplify_kernel_matches_plain_at_b64(cuda):
     assert (got.reprojection_loss - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
-def _small_step(device, dtype, feed_map, weights, num_smplify_iters=2):
+def _small_step(device, dtype, feed_map, weights, num_smplify_iters=2, tf32=False):
     """One train step at RES 64, batch 2, SMPLify on, dropout off, from
-    `weights`: (metrics, gradients, BatchNorm statistics) as float64 numpy."""
+    `weights`: (metrics, gradients, BatchNorm statistics) as float64 numpy.
+    `tf32` lets the step's products and convolutions run in TF32."""
     import dataclasses
 
     from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
     from inbed_pose_estimation_tpu_torch.models import build_model
     from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step
 
-    options = build_parser().parse_args(["--name", "t", "--run_smplify", "--img_res", "64", "--batch_size", "2",
+    options = build_parser().parse_args(["--run_smplify", "--img_res", "64", "--batch_size", "2",
                                          "--num_smplify_iters", str(num_smplify_iters)])
     model, spec = build_model("cashmrV2", device=device, dropout_rate=0.0)
     model.load_state_dict(weights)
@@ -144,7 +145,9 @@ def _small_step(device, dtype, feed_map, weights, num_smplify_iters=2):
     state = init_train_state(model, options, np.zeros((16, 82)), device=device)
     step = make_train_step(model, spec, synthetic_smpl_model(0, device=device).to(dtype),
                            type(prior)(*(t.to(dtype) for t in prior)), options, device=device)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
     state, metrics = step(state, batch)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     host = lambda t: t.detach().double().cpu().numpy()  # noqa: E731
     return ({k: float(v) for k, v in metrics.items()}, {k: host(p.grad) for k, p in model.named_parameters()},
             {k: host(b) for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))})
@@ -153,27 +156,38 @@ def _small_step(device, dtype, feed_map, weights, num_smplify_iters=2):
 @pytest.mark.parametrize("feed", ["two_pass", "two_pass_no_feedback"])
 def test_train_step_on_card_matches_cpu(cuda, feed):
     """The step on the card against the CPU on the same weights and batch:
-    loss and metrics; each gradient leaf's distance to the CPU's float64
-    step within 4x the CPU float32 step's distance plus 1e-4 of its norm
-    (cuDNN's convolution algorithms round differently from the CPU's); and
-    the BatchNorm statistics, at the bounds tests/test_torch_port_train_step.py
-    holds the port to against JAX."""
+    loss and metrics (relative); each gradient leaf's distance to the CPU's
+    float64 step over float32's own error there (the CPU float32 step's
+    distance plus 1e-4 of the leaf's norm: cuDNN's convolution algorithms
+    round differently from the CPU's); and the BatchNorm statistics' error
+    over tol + tol * |value|.  The limits are 2-3.5x the card's readings on
+    these inputs (feedback: 3.1e-4, 1.37, 0.29 of 1e-3; no feedback:
+    8.3e-6, 3.81, 0.66 of 3e-5), and the same step in TF32 must break one."""
     from inbed_pose_estimation_tpu_torch.models import build_model
 
-    feed_map, rel, stat_tol = {"two_pass": ((("depth", 2),), 1e-3, 3e-3),
-                               "two_pass_no_feedback": ((), 1e-4, 5e-5)}[feed]
+    feed_map, limits, stat_tol = {
+        "two_pass": ((("depth", 2),), {"metrics": 8e-4, "grads": 3.0}, 1e-3),
+        "two_pass_no_feedback": ((), {"metrics": 2e-5, "grads": 8.0}, 5e-5),
+    }[feed]
     torch.manual_seed(0)
     weights = build_model("cashmrV2", device="cpu", dropout_rate=0.0)[0].state_dict()
-    card = _small_step(cuda, torch.float32, feed_map, weights)
     cpu = _small_step("cpu", torch.float32, feed_map, weights)
     cpu64 = _small_step("cpu", torch.float64, feed_map, weights)
-    for k, v in cpu[0].items():
-        assert card[0][k] == pytest.approx(v, rel=rel), k
-    for k, g in cpu[1].items():
-        floor = np.linalg.norm(g - cpu64[1][k]) + 1e-4 * np.linalg.norm(cpu64[1][k])
-        assert np.linalg.norm(card[1][k] - cpu64[1][k]) <= 4 * floor, k
-    for k, v in cpu[2].items():
-        np.testing.assert_allclose(card[2][k], v, rtol=stat_tol, atol=stat_tol, err_msg=k)
+
+    def over_limits(card):
+        return {
+            "metrics": max(abs(card[0][k] / v - 1) for k, v in cpu[0].items() if v != 0) / limits["metrics"],
+            "grads": max(np.linalg.norm(card[1][k] - cpu64[1][k])
+                         / (np.linalg.norm(g - cpu64[1][k]) + 1e-4 * np.linalg.norm(cpu64[1][k]))
+                         for k, g in cpu[1].items()) / limits["grads"],
+            "bn_stats": max(float((np.abs(card[2][k] - v) / (stat_tol + stat_tol * np.abs(v))).max())
+                            for k, v in cpu[2].items()),
+        }
+
+    readings = over_limits(_small_step(cuda, torch.float32, feed_map, weights))
+    assert max(readings.values()) <= 1, readings
+    tf32 = over_limits(_small_step(cuda, torch.float32, feed_map, weights, tf32=True))
+    assert max(tf32.values()) > 1, tf32
 
 
 def test_train_step_launches_the_kernel_6_plus_2n_times(cuda):

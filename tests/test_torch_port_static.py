@@ -70,7 +70,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
             make_inference_fn(model, spec, synthetic_smpl_model(0, device="cpu"), np.zeros((17, 6890), np.float32))
         else:
             model, spec = build_model("hmr", device="cpu")
-            options = build_parser().parse_args(["--name", "x"])
+            options = build_parser().parse_args([])
             if entry == "make_train_step":
                 make_train_step(model, spec, synthetic_smpl_model(0, device="cpu"), synthetic_gmm_prior(device="cpu"),
                                 options)

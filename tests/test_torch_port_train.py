@@ -23,14 +23,9 @@ from inbed_pose_estimation_tpu.train.trainer import TrainState as JTrainState
 from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.models.backbone import BatchNorm2d
 from inbed_pose_estimation_tpu_torch.models.heads import dropout
-from inbed_pose_estimation_tpu_torch.train import FitsStore, build_parser, fits_get, fits_set
+from inbed_pose_estimation_tpu_torch.train import FitsStore, build_parser, fits_get, fits_set, train_state_from_jax
 from inbed_pose_estimation_tpu_torch.train import losses as tL
-from inbed_pose_estimation_tpu_torch.weights import (
-    flax_path,
-    load_jax_adam_state,
-    load_jax_variables,
-    train_state_from_jax,
-)
+from inbed_pose_estimation_tpu_torch.weights import flax_path, load_jax_adam_state, load_jax_variables
 
 RES, B = 64, 2
 
@@ -149,8 +144,26 @@ def test_fits_store_layout_and_files(tmp_path):
         FitsStore("b", 4, static_fits_dir=str(static), device="cpu")
 
 
+STEP_OPTIONS = {"lr", "img_res", "num_cas_iters", "run_smplify", "num_smplify_iters", "smplify_threshold",
+                "shape_loss_weight", "keypoint_loss_weight", "beta_loss_weight", "openpose_train_weight",
+                "gt_train_weight"}
+
+
 def test_options_match_jax():
-    assert vars(build_parser().parse_args(["--name", "x"])) == vars(j_build_parser().parse_args(["--name", "x"]))
+    """Every option the step reads, with the JAX parser's name and default,
+    and the same value when set."""
+    port = vars(build_parser().parse_args([]))
+    ref = vars(j_build_parser().parse_args(["--name", "x"]))
+    assert STEP_OPTIONS <= set(port) and port == {k: ref[k] for k in port}
+    args = ["--lr", "1e-4", "--img_res", "64", "--num_smplify_iters", "3", "--run_smplify", "--batch_size", "2"]
+    assert vars(build_parser().parse_args(args)) == {
+        k: v for k, v in vars(j_build_parser().parse_args(["--name", "x"] + args)).items() if k in port}
+
+
+@pytest.mark.parametrize("arg", ["--dtype=bfloat16", "--remat", "--no-uint8_feed", "--fast_preprocess"])
+def test_options_reject_what_the_port_does_not_implement(arg):
+    with pytest.raises(SystemExit):
+        build_parser().parse_args([arg])
 
 
 def test_batchnorm_running_var_is_biased():
