@@ -29,7 +29,16 @@ Phases, in order; any failure exits non-zero before the last line:
      device's busy share of one step (torch.profiler); SMPLify through the
      kernel against the plain skinning at batch 64; and the step on the
      card against the CPU (float32, with float64 as the yardstick of
-     float32's own error) at a small size.
+     float32's own error) at a small size;
+  6. eval driver: a synthetic SLP tree at SLP's frame size (45 samples a
+     split), then the eval CLI `eval_gpu.main` at its defaults (cashmrV2,
+     batch 32, 224x224, masks on) over the three default splits, and over
+     slp-4mod-uncover with --device_preprocess and --result_file: one
+     skinning launch per batch, finite MPJPE >= PA-MPJPE, mask accuracy and
+     F1, the results npz; images/s, time waiting on the loader, inference,
+     mask raster (K3), host uncrop + F1 and device crop (K5) per batch, peak
+     memory, the card's busy share of one split (torch.profiler); K3 and K5 on the card against the CPU; and the CLI on the card
+     against the CPU at RES 64 over 2-sample splits.
 Then the kernel table as one JSON line, the nvidia-smi line, and
 {"ok": true, "device": ...} as the last line.
 """
@@ -38,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -65,6 +75,26 @@ CARD_VS_CPU_LIMITS = {
     "two_pass": {"feed_map": (("depth", 2),), "metrics": 1e-4, "grads": 3.0, "bn_stats_tol": 1e-3, "fits": 4e-4},
     "two_pass_no_feedback": {"feed_map": (), "metrics": 1.5e-5, "grads": 3.0, "bn_stats_tol": 3e-5, "fits": 1e-5},
 }
+
+# Phase 6: the eval CLI at its defaults (cashmrV2, batch 32, 224x224, 2-pass
+# cascade, masks on, seeded weights, synthetic SMPL) over a synthetic SLP tree
+# of SLP's frame size (RGB 1024 high x 576 wide; the aligned IR, depth and
+# pressure frames are warped into it) with one subject's 45 poses per split:
+# one full batch and a padded tail of 13.
+SLP_FRAME_HW, EVAL_SAMPLES = (1024, 576), 45
+EVAL_ARGS = ["--model", MODEL, "--allow_synthetic_assets"]
+# The same CLI on the card and on the CPU at RES 64 over 2-sample splits: the
+# largest relative difference of MPJPE and PA-MPJPE and the largest absolute
+# difference of the mask scores over the three splits.  The pose limits are
+# 2-3.5x the card's largest readings (MPJPE 5.4e-8 and 1.09e-7 in two runs,
+# PA-MPJPE 6.2e-8 in both; PERF.md, PR 4); the mask scores read 0, so their
+# limits are one pixel of a split's 38,400 (accuracy) and the F1 that one
+# pixel can move.
+EVAL_SMALL_ARGS = EVAL_ARGS + ["--img_res", "64", "--batch_size", "2", "--num_workers", "1"]
+EVAL_CARD_VS_CPU_LIMITS = {"mpjpe": 3e-7, "pa_mpjpe": 1.5e-7, "mask_accuracy": 2.6e-5, "mask_f1": 1e-4}
+# K3 on the card against the CPU at batch 32, 224x224, tile 28, SMPL's 13776
+# faces: pixels that may differ (the card read 0, as on the CPU against JAX).
+K3_CARD_VS_CPU_MAX_PIXELS = 0
 
 
 def fail(msg: str) -> None:
@@ -340,6 +370,199 @@ def train_phase(torch, np, dev, smi, smpl, cuda_ms):
     return launches
 
 
+def eval_card_vs_cpu(np, dev, base):
+    """The eval CLI at EVAL_SMALL_ARGS on the card and on the CPU (the same
+    seeded weights, a tree of 2-sample splits): each metric's difference,
+    relative for the pose metrics, absolute for the mask scores."""
+    import eval_gpu
+
+    from inbed_pose_estimation_tpu_torch.data.synthetic import write_synthetic_environment
+
+    _point_env_at(write_synthetic_environment(f"{base}/small", num_subjects=1, samples_per_subject=2))
+    card = eval_gpu.main(EVAL_SMALL_ARGS + ["--device", dev.type])
+    cpu = eval_gpu.main(EVAL_SMALL_ARGS + ["--device", "cpu"])
+    readings = {k: 0.0 for k in EVAL_CARD_VS_CPU_LIMITS}
+    for split, want in cpu.items():
+        for k in readings:
+            check(card[split][k] is not None and np.isfinite(card[split][k]), f"card vs CPU: {split} {k} missing")
+            diff = abs(card[split][k] - want[k])
+            readings[k] = max(readings[k], diff / abs(want[k]) if k in ("mpjpe", "pa_mpjpe") else diff)
+    return readings, {s: {k: r[k] for k in readings} for s, r in cpu.items()}
+
+
+def _point_env_at(env: dict) -> None:
+    os.environ["INBED_DATA_ROOT"] = env["data_root"]
+    os.environ["INBED_NPZ_PATH"] = env["npz_path"]
+
+
+def eval_driver_phase(torch, np, dev, smi, cuda_ms):
+    """Phase 6; returns the skinning launches of the driver's run and its
+    batch count."""
+    import tempfile
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import eval_gpu
+
+    from inbed_pose_estimation_tpu_torch.data import BaseDataset, CheckpointDataLoader
+    from inbed_pose_estimation_tpu_torch.data.device_preprocess import crop_resize, make_device_preprocess
+    from inbed_pose_estimation_tpu_torch.data.synthetic import write_synthetic_environment
+    from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn, mask_confusion
+    from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+    from inbed_pose_estimation_tpu_torch.ops.tri_raster import rasterize_mesh_batch
+    from inbed_pose_estimation_tpu_torch.render import PartRenderer
+    from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
+
+    saved_env = {k: os.environ.get(k) for k in ("INBED_DATA_ROOT", "INBED_NPZ_PATH", "INBED_ASSET_DIR")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as base:
+        try:
+            os.environ["INBED_ASSET_DIR"] = f"{base}/no_assets"  # synthetic SMPL and regressor
+            t0 = time.perf_counter()
+            _point_env_at(write_synthetic_environment(base, num_subjects=1, samples_per_subject=EVAL_SAMPLES,
+                                                      img_hw=SLP_FRAME_HW))
+            log("eval_tree", samples_per_split=EVAL_SAMPLES, frame_hw=list(SLP_FRAME_HW),
+                seconds=time.perf_counter() - t0)
+
+            # The CLI at its defaults over the three default splits.
+            splits = eval_gpu.DEFAULT_SPLITS
+            batches = len(splits) * -(-EVAL_SAMPLES // BATCH)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sk.launches = 0
+            results = eval_gpu.main(EVAL_ARGS + ["--device", dev.type])
+            torch.cuda.synchronize()
+            launches = sk.launches
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            log("eval_driver", args=EVAL_ARGS, splits=list(splits), launches={"skinning": launches},
+                expected=batches, peak_mem_gib=peak_gib, card=smi,
+                results={s: {k: v for k, v in r.items()} for s, r in results.items()})
+            check(launches == batches, f"the eval driver launched skinning {launches} times, expected {batches}")
+            for split, r in results.items():
+                check(r["timing"]["images"] == EVAL_SAMPLES, f"{split}: {r['timing']['images']} images scored")
+                check(np.isfinite(r["mpjpe"]) and np.isfinite(r["pa_mpjpe"]) and r["pa_mpjpe"] <= r["mpjpe"],
+                      f"{split}: MPJPE {r['mpjpe']} / PA-MPJPE {r['pa_mpjpe']}")
+                check(r["mask_accuracy"] is not None and 0 < r["mask_accuracy"] <= 1 and 0 < r["mask_f1"] <= 1,
+                      f"{split}: mask accuracy {r['mask_accuracy']}, F1 {r['mask_f1']}")
+
+            # The card's busy share of one split's driver run: its summed
+            # kernel time over run_evaluation's wall time, profiled.
+            split = "slp-4mod-uncover"
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                profiled = eval_gpu.main(EVAL_ARGS + ["--device", dev.type, "--dataset", split])[split]
+                torch.cuda.synchronize()
+            by_kernel = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
+            del prof
+            kernel_ms = sum(by_kernel.values())
+            log("eval_driver_busy", split=split, kernel_ms=kernel_ms, wall_s=profiled["timing"]["seconds"],
+                busy_share=kernel_ms / (1e3 * profiled["timing"]["seconds"]), kernels=sum(1 for _ in by_kernel),
+                top_kernels_ms=[[k[:80], v] for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]],
+                card=smi)
+
+            # The raw frames through the device crop, with the results npz.
+            sk.launches = 0
+            pre = eval_gpu.main(EVAL_ARGS + ["--device", dev.type, "--dataset", split, "--device_preprocess",
+                                             "--result_file", f"{base}/results"])[split]
+            torch.cuda.synchronize()
+            pre_launches = sk.launches
+            fits = np.load(f"{base}/results/smpl_fits/{split}_fits.npz")
+            shapes = {k: list(fits[k].shape) for k in fits.files}
+            n = EVAL_SAMPLES
+            log("eval_driver_device_preprocess", split=split, launches={"skinning": pre_launches},
+                results=pre, npz=shapes, host_crop_mpjpe=results[split]["mpjpe"], card=smi)
+            check(pre_launches == -(-n // BATCH), f"--device_preprocess: skinning launched {pre_launches} times")
+            check(np.isfinite(pre["mpjpe"]) and pre["pa_mpjpe"] <= pre["mpjpe"] and pre["mask_f1"] is not None,
+                  "--device_preprocess: metrics")
+            check(shapes == {"pred_joints": [n, 17, 3], "pose": [n, 72], "betas": [n, 10], "camera": [n, 3],
+                             "rotmat": [n, 24, 3, 3]}, f"results npz schema {shapes}")
+            check(all(np.isfinite(fits[k]).all() for k in fits.files), "results npz: non-finite values")
+
+            # The driver's parts at B=32, 224^2, on the first batch of a split.
+            # The host time of one batch on the loader's 8 threads, and of
+            # one sample on one thread, with the host crop and raw frames.
+            load_ms, sample_ms, first = {}, {}, {}
+            for mode in ("host_crop", "raw_frames"):
+                ds = BaseDataset(types.SimpleNamespace(img_res=RES, device_preprocess=mode == "raw_frames"), split)
+                loader = CheckpointDataLoader(ds, batch_size=BATCH, shuffle=False, num_workers=8, drop_last=False)
+                t0 = time.perf_counter()
+                first[mode] = next(iter(loader))[1]
+                load_ms[mode] = 1e3 * (time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                for i in range(4):
+                    ds[i]
+                sample_ms[mode] = 1e3 * (time.perf_counter() - t0) / 4
+            batch, raw = first["host_crop"], first["raw_frames"]
+            torch.manual_seed(0)
+            model, spec = build_model(MODEL, device=dev)
+            smpl = synthetic_smpl_model(0, device=dev)
+            infer = make_inference_fn(model, spec, smpl, load_j_regressor_h36m(num_vertices=smpl.v_template.shape[0]),
+                                      num_cas_iters=NUM_CAS_ITERS, final_recon=False, device=dev)
+            inputs = tuple(torch.from_numpy(batch[k]).to(dev) for k in spec.modalities)
+            infer_ms = cuda_ms(lambda: infer(inputs), 10)
+            out = infer(inputs)
+            renderer = PartRenderer(render_res=RES, template=smpl.v_template.cpu().numpy(),
+                                    faces=smpl.faces.cpu().numpy(), render_labels=False, device=dev)
+            raster_ms = cuda_ms(lambda: renderer(out["vertices"], out["cam"]), 10)
+            # K3 at SMPL's face count (13776), the real F * tile^2 work.
+            V = smpl.v_template.shape[0]
+            smpl_faces = torch.stack([torch.arange(13776, device=dev) + i for i in range(3)], dim=1) % V
+            uvz = renderer.project(out["vertices"], out["cam"])
+            raster_smpl_ms = cuda_ms(lambda: rasterize_mesh_batch(uvz, smpl_faces, RES, tile=renderer.tile), 5)
+            masks = renderer(out["vertices"], out["cam"])[0].cpu().numpy()
+            t0 = time.perf_counter()
+            scores = mask_confusion(masks, batch, BATCH)
+            host_f1_ms = 1e3 * (time.perf_counter() - t0)
+            # K5 on the raw frames already on the card, and their upload.
+            pre_fn = make_device_preprocess(res=RES, device=dev)
+            t0 = time.perf_counter()
+            raw_dev = {k: torch.from_numpy(raw["raw_" + k]).to(dev) for k in spec.modalities}
+            torch.cuda.synchronize()
+            h2d_ms = 1e3 * (time.perf_counter() - t0)
+            box = [torch.from_numpy(raw[k]).to(dev) for k in ("center", "scale")]
+            flip, noise = torch.zeros(BATCH, device=dev), torch.ones(BATCH, 3, device=dev)
+            crop_ms = cuda_ms(lambda: pre_fn(raw_dev, *box, flip, noise), 10)
+            # K3 and K5 on the card against the CPU on the same inputs.
+            cpu_masks = rasterize_mesh_batch(uvz.cpu(), smpl_faces.cpu(), RES, tile=renderer.tile)[0]
+            card_masks = rasterize_mesh_batch(uvz, smpl_faces, RES, tile=renderer.tile)[0].cpu()
+            img01 = raw_dev["img"][:4].float() / 255.0
+            k5_err = (crop_resize(img01, box[0][:4], box[1][:4], RES).cpu()
+                      - crop_resize(img01.cpu(), box[0][:4].cpu(), box[1][:4].cpu(), RES)).abs().max().item()
+            k3_diff = int((card_masks != cpu_masks).sum())
+            log("eval_driver_parts", batch=BATCH, res=RES, split=split, card=smi,
+                images_per_s={s: r["timing"]["images_per_s"] for s, r in results.items()},
+                loader_wait_s={s: r["timing"]["loader_wait_s"] for s, r in results.items()},
+                mask_branch_s={s: r["timing"]["mask_s"] for s, r in results.items()},
+                driver_seconds={s: r["timing"]["seconds"] for s, r in results.items()},
+                batch_load_ms_8_threads=load_ms, sample_ms_1_thread=sample_ms,
+                inference_ms_per_batch=infer_ms,
+                mask_raster_ms_per_batch=raster_ms, mask_raster_faces=int(smpl.faces.shape[0]),
+                mask_raster_smpl_faces_ms_per_batch=raster_smpl_ms, raster_tile=renderer.tile,
+                host_uncrop_f1_ms_per_batch=host_f1_ms, mask_pixels_scored=int(scores[1]),
+                device_crop_ms_per_batch=crop_ms, raw_upload_ms_per_batch=h2d_ms, peak_mem_gib=peak_gib,
+                k3_card_vs_cpu_differing_pixels=k3_diff, k3_pixels=int(cpu_masks.numel()),
+                k5_card_vs_cpu_max_abs_err=k5_err)
+            check(k3_diff <= K3_CARD_VS_CPU_MAX_PIXELS, f"K3: {k3_diff} pixels differ between the card and the CPU")
+            check(k5_err <= 1e-5, f"K5: the card's crop differs from the CPU's by {k5_err}")
+
+            readings, cpu_metrics = eval_card_vs_cpu(np, dev, base)
+            log("eval_card_vs_cpu", args=EVAL_SMALL_ARGS, readings=readings, limits=EVAL_CARD_VS_CPU_LIMITS,
+                cpu=cpu_metrics)
+            for k, v in readings.items():
+                check(v <= EVAL_CARD_VS_CPU_LIMITS[k], f"eval card vs CPU: {k} reads {v:.3g}, "
+                                                       f"limit {EVAL_CARD_VS_CPU_LIMITS[k]:.3g}")
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return launches, batches
+
+
 def main() -> int:
     import torch
 
@@ -599,6 +822,9 @@ def main() -> int:
     # 5. train step
     launches_train_step = train_phase(torch, np, dev, smi, smpl, cuda_ms)
 
+    # 6. eval driver
+    launches_eval_driver, eval_driver_batches = eval_driver_phase(torch, np, dev, smi, cuda_ms)
+
     kernels = [{
         "name": "skinning", "route": "cuda",
         "source": "inbed_pose_estimation_tpu_torch/ops/csrc/skinning.cu",
@@ -610,6 +836,7 @@ def main() -> int:
         "ms_b64": timing[64]["ms"], "plain_ms_b64": timing[64]["plain_ms"], "bound_ms_b64": timing[64]["bound_ms"],
         "bound_by_b64": timing[64]["bound_by"], "eager_ms_b64": timing[64]["eager_ms"],
         "launches_train_step": launches_train_step,
+        "launches_eval_driver": launches_eval_driver, "eval_driver_batches": eval_driver_batches,
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

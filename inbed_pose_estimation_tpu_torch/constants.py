@@ -61,6 +61,8 @@ JOINT_MAP_ARRAY = np.array([JOINT_MAP[n] for n in JOINT_NAMES], dtype=np.int32)
 
 # H36M regressor rows -> the 17 evaluation joints.
 H36M_TO_J17 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10, 0, 7, 9]
+# Rows of the packed 24-joint 3D ground truth (`S`) -> the 17 evaluation joints.
+J24_TO_J17 = [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 18, 14, 16, 17]
 
 # Left/right mirror of the 24 SMPL joints, and of the 72 axis-angle pose
 # entries (three per joint).
@@ -69,6 +71,11 @@ SMPL_JOINTS_FLIP_PERM = [
     21, 20, 23, 22,
 ]
 SMPL_POSE_FLIP_PERM = [3 * j + k for j in SMPL_JOINTS_FLIP_PERM for k in range(3)]
+# Left/right mirror of the 24 ground-truth 2D joints and of the 49-joint superset.
+J24_FLIP_PERM = [5, 4, 3, 2, 1, 0, 11, 10, 9, 8, 7, 6, 12, 13, 14, 15, 16, 17, 18, 19, 21, 20, 23, 22]
+J49_FLIP_PERM = [0, 1, 5, 6, 7, 2, 3, 4, 8, 12, 13, 14, 9, 10, 11, 16, 15, 18, 17, 22, 23, 24, 19, 20, 21] + [
+    25 + i for i in J24_FLIP_PERM
+]
 
 NUM_SMPL_JOINTS = 24
 NUM_BETAS = 10

@@ -9,7 +9,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import constants
+from .. import config, constants
 from ..device import resolve_device
 from ..geometry import reconstruction_error
 from ..models import cascade_apply
@@ -18,9 +18,12 @@ from ..smpl.model import SMPLModel, lbs
 
 
 def load_j_regressor_h36m(path: Optional[str] = None, num_vertices: int = constants.NUM_VERTICES) -> np.ndarray:
-    """J_regressor_h36m.npy [17, V] from `path`, or a deterministic synthetic
-    stand-in with the same shape and row normalization when it is missing."""
-    if path and os.path.exists(path):
+    """J_regressor_h36m.npy [17, V] from `path` (by default the asset
+    directory's, `config.asset("j_regressor_h36m")`), or a deterministic
+    synthetic stand-in with the same shape and row normalization when it is
+    missing."""
+    path = path or config.asset("j_regressor_h36m")
+    if os.path.exists(path):
         return np.load(path).astype(np.float32)
     J = np.zeros((17, num_vertices), np.float32)
     for j, cfrac in enumerate(np.linspace(0.03, 0.97, 17)):

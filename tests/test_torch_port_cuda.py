@@ -198,3 +198,43 @@ def test_train_step_launches_the_kernel_6_plus_2n_times(cuda):
     before = sk.launches
     _small_step(cuda, torch.float32, (("depth", 2),), weights, num_smplify_iters=3)
     assert sk.launches - before == 6 + 2 * 3
+
+
+def test_mesh_raster_on_card_matches_cpu(cuda):
+    """K3 (plain torch) on the card against the CPU on the same inputs: a
+    folded grid mesh over a 224^2 canvas, tile 28, with and without part
+    labels; the number of differing pixels must be 0."""
+    from inbed_pose_estimation_tpu_torch.ops.tri_raster import rasterize_mesh_batch
+
+    rng = np.random.default_rng(7)
+    n = 40
+    g = np.stack(np.meshgrid(np.linspace(-10, 230, n), np.linspace(-5, 228, n)), -1).reshape(-1, 2)
+    uvz = np.concatenate([g + rng.normal(0, 2, g.shape), rng.uniform(2, 9, (n * n, 1))], 1)[None].repeat(3, 0)
+    uvz[1:, :, :2] += rng.normal(0, 3, (2, n * n, 2))
+    idx = np.arange(n * n).reshape(n, n)
+    quads = np.stack([idx[:-1, :-1], idx[:-1, 1:], idx[1:, :-1], idx[1:, 1:]], -1).reshape(-1, 4)
+    faces = torch.from_numpy(np.concatenate([quads[:, [0, 1, 2]], quads[:, [1, 3, 2]]]))
+    labels = torch.from_numpy(rng.integers(1, 7, n * n))
+    uvz = torch.from_numpy(uvz.astype(np.float32))
+    for lab in (None, labels):
+        cpu = rasterize_mesh_batch(uvz, faces, 224, labels=lab, tile=28)
+        card = rasterize_mesh_batch(uvz.to(cuda), faces.to(cuda), 224, labels=None if lab is None else lab.to(cuda),
+                                    tile=28)
+        assert cpu[0].sum() > 1000
+        for a, b in zip(card, cpu):
+            assert int((a.cpu() != b).sum()) == 0
+
+
+def test_device_crop_on_card_matches_cpu(cuda):
+    """K5 (plain torch) on the card against the CPU: a batch of raw uint8
+    frames at the SLP frame size cropped to 224^2 (boxes inside the frame and
+    across its edges), within 1e-5 before normalization."""
+    from inbed_pose_estimation_tpu_torch.data.device_preprocess import crop_resize
+
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy(rng.integers(0, 256, (4, 3, 1024, 576), dtype=np.uint8)).float() / 255.0
+    center = torch.tensor([[288.0, 512.0], [40.0, 30.0], [500.0, 1000.0], [288.0, 512.0]])
+    scale = torch.tensor([4.0, 3.0, 2.5, 6.2])
+    cpu = crop_resize(img, center, scale, 224)
+    card = crop_resize(img.to(cuda), center.to(cuda), scale.to(cuda), 224).cpu()
+    assert (card - cpu).abs().max() <= 1e-5

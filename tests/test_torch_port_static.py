@@ -10,9 +10,11 @@ import torch
 
 import inbed_pose_estimation_tpu_torch as port
 from inbed_pose_estimation_tpu_torch.device import resolve_device
-from inbed_pose_estimation_tpu_torch.evaluation import make_inference_fn
+from inbed_pose_estimation_tpu_torch.data.device_preprocess import make_device_preprocess
+from inbed_pose_estimation_tpu_torch.evaluation import make_inference_fn, run_evaluation
 from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
 from inbed_pose_estimation_tpu_torch.models import build_model
+from inbed_pose_estimation_tpu_torch.render import PartRenderer
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
 from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step
 
@@ -31,7 +33,7 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "eval_gpu.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
@@ -55,11 +57,23 @@ def test_resolve_device_raises_without_cuda_and_pins_f32(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["build_model", "synthetic_smpl_model", "make_inference_fn", "synthetic_gmm_prior",
-                                   "make_train_step", "init_train_state"])
+                                   "make_train_step", "init_train_state", "run_evaluation", "make_device_preprocess",
+                                   "PartRenderer", "eval_gpu.main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
     _cuda_missing(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        if entry == "build_model":
+        if entry == "run_evaluation":
+            model, spec = build_model("hmr", device="cpu")
+            run_evaluation(model, spec, "slp-4mod-uncover", [], synthetic_smpl_model(0, device="cpu"))
+        elif entry == "make_device_preprocess":
+            make_device_preprocess(res=64)
+        elif entry == "PartRenderer":
+            PartRenderer(render_res=64, num_vertices=10)
+        elif entry == "eval_gpu.main":
+            import eval_gpu
+
+            eval_gpu.main(["--model", "hmr", "--allow_synthetic_assets"])
+        elif entry == "build_model":
             build_model("hmr")
         elif entry == "synthetic_smpl_model":
             synthetic_smpl_model(0)
