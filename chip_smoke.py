@@ -436,8 +436,7 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
             launches = sk.launches
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
             log("eval_driver", args=EVAL_ARGS, splits=list(splits), launches={"skinning": launches},
-                expected=batches, peak_mem_gib=peak_gib, card=smi,
-                results={s: {k: v for k, v in r.items()} for s, r in results.items()})
+                expected=batches, peak_mem_gib=peak_gib, card=smi, results=results)
             check(launches == batches, f"the eval driver launched skinning {launches} times, expected {batches}")
             for split, r in results.items():
                 check(r["timing"]["images"] == EVAL_SAMPLES, f"{split}: {r['timing']['images']} images scored")
