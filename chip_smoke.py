@@ -38,7 +38,20 @@ Phases, in order; any failure exits non-zero before the last line:
      F1, the results npz; images/s, time waiting on the loader, inference,
      mask raster (K3), host uncrop + F1 and device crop (K5) per batch, peak
      memory, the card's busy share of one split (torch.profiler); K3 and K5 on the card against the CPU; and the CLI on the card
-     against the CPU at RES 64 over 2-sample splits.
+     against the CPU at RES 64 over 2-sample splits;
+  7. train driver: a synthetic SLP tree at SLP's frame size with a train
+     split of 256 samples, then the train CLI `train_gpu.main` at its
+     defaults (cashmrV2, batch 64, 224x224, float32, 2-pass cascade, 8
+     loader threads, uint8 feed, shuffle and augmentation on) with
+     --run_smplify (100 Adam steps a stage) for one epoch of 4 steps (1
+     warm-up, 3 timed) and the epoch-end checkpoint and eval on
+     slp-4mod-uncover: 206 skinning launches a step, images/s, ms a step,
+     the loader wait and its share, the step alone on a loaded batch,
+     checkpoint seconds and size, eval seconds, peak memory; then the run
+     resumed in-process from its `.pt` (epoch, step, permutation, Adam's
+     moments, the dropout generator and the fits as saved) and one more
+     step from there.  Its checkpoints go to a temporary directory that is
+     deleted.
 Then the kernel table as one JSON line, the nvidia-smi line, and
 {"ok": true, "device": ...} as the last line.
 """
@@ -61,7 +74,7 @@ TIMED_CALLS = 20
 
 # Phase 5: the train CLI's defaults with SMPLify on; the small step that is
 # also run on the CPU.
-TRAIN_ARGS = ["--run_smplify"]
+TRAIN_ARGS = ["--name", "chip_smoke", "--run_smplify"]
 SMALL_TRAIN_ARGS = TRAIN_ARGS + ["--img_res", "64", "--batch_size", "2", "--num_smplify_iters", "2"]
 FITS_ROWS, TIMED_STEPS, CHECK_SMPLIFY_ITERS = 256, 3, 5
 # The small step on the card against the CPU, with the cascade's depth
@@ -95,6 +108,15 @@ EVAL_CARD_VS_CPU_LIMITS = {"mpjpe": 3e-7, "pa_mpjpe": 1.5e-7, "mask_accuracy": 2
 # K3 on the card against the CPU at batch 32, 224x224, tile 28, SMPL's 13776
 # faces: pixels that may differ (the card read 0, as on the CPU against JAX).
 K3_CARD_VS_CPU_MAX_PIXELS = 0
+
+
+# Phase 7: the train CLI at its defaults with SMPLify on over a synthetic SLP
+# tree at SLP's frame size whose train split (uncover + cover1) holds
+# 2 * TRAIN_SAMPLES = 256 samples: one epoch is 4 steps at batch 64; the eval
+# split slp-4mod-uncover holds TRAIN_SAMPLES.
+TRAIN_SAMPLES, TRAIN_DRIVER_STEPS = 128, 4
+TRAIN_DRIVER_ARGS = ["--name", "chip_smoke", "--run_smplify", "--num_epochs", "1", "--summary_steps", "1",
+                     "--data_test", "slp-4mod-uncover", "--allow_synthetic_assets"]
 
 
 def fail(msg: str) -> None:
@@ -228,7 +250,7 @@ def train_phase(torch, np, dev, smi, smpl, cuda_ms):
     state = init_train_state(model, options, store.array, seed=SEED, device=dev)
     step = make_train_step(model, spec, smpl, prior, options, device=dev)
     host = train_batch(np, spec, B, options.img_res, FITS_ROWS, SEED)
-    check(set(host) == step_feed_keys(spec), "the synthetic batch lacks a key the step reads")
+    check(set(host) == step_feed_keys(spec) - {"pixel_noise"}, "the synthetic batch lacks a key the float feed has")
     batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
     rows = batch["sample_index"]
     params0 = [p.detach().clone() for p in model.parameters()]
@@ -562,6 +584,145 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
     return launches, batches
 
 
+def train_driver_phase(torch, np, dev, smi):
+    """Phase 7; returns the skinning launches of one driver step and of the
+    driver's whole run, and its steps."""
+    import tempfile
+
+    import train_gpu
+
+    from inbed_pose_estimation_tpu_torch.data import CheckpointDataLoader
+    from inbed_pose_estimation_tpu_torch.data.synthetic import write_synthetic_environment
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+
+    saved_env = {k: os.environ.get(k) for k in ("INBED_DATA_ROOT", "INBED_NPZ_PATH", "INBED_ASSET_DIR")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as base:
+        try:
+            os.environ["INBED_ASSET_DIR"] = f"{base}/no_assets"  # synthetic SMPL and GMM prior
+            t0 = time.perf_counter()
+            _point_env_at(write_synthetic_environment(base, num_subjects=1, samples_per_subject=TRAIN_SAMPLES,
+                                                      img_hw=SLP_FRAME_HW))
+            log("train_tree", train_samples=2 * TRAIN_SAMPLES, eval_samples=TRAIN_SAMPLES,
+                frame_hw=list(SLP_FRAME_HW), seconds=time.perf_counter() - t0)
+            args = TRAIN_DRIVER_ARGS + ["--log_dir", f"{base}/logs", "--device", dev.type]
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sk.launches = 0
+            t0 = time.perf_counter()
+            trainer = train_gpu.main(args)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = sk.launches
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            opts = trainer.options
+            B, N, steps = opts.batch_size, opts.num_smplify_iters, trainer.step_count
+            eval_batches = -(-TRAIN_SAMPLES // min(B, 32))
+            summaries = [h for h in trainer.history if h["kind"] == "summary"]
+            saves = [h for h in trainer.history if h["kind"] == "save"]
+            evals = [h for h in trainer.history if h["kind"] == "eval"]
+            per_step = (launches - eval_batches) / steps if steps else 0
+            check(steps == TRAIN_DRIVER_STEPS and len(summaries) == steps and len(saves) == 1 and len(evals) == 1,
+                  f"train driver: {steps} steps, {len(saves)} saves, {len(evals)} evals")
+            check(per_step == 6 + 2 * N, f"train driver: {launches} skinning launches for {steps} steps and "
+                                         f"{eval_batches} eval batches, {per_step} a step, expected {6 + 2 * N}")
+            for h in summaries:
+                check(all(np.isfinite(v) for v in h["metrics"].values()), f"train driver step {h['step']}: metrics")
+            timed = summaries[1:]
+            wall_ms = sum(h["wall_ms_per_step"] for h in timed) / len(timed)
+            phase_ms = {k: sum(h["phases_ms"][k] for h in timed) / len(timed) for k in timed[0]["phases_ms"]}
+            log("train_driver", args=args, model=opts.model, batch=B, res=opts.img_res, smplify_iters=N,
+                workers=opts.num_workers, uint8_feed=opts.uint8_feed, steps=steps, timed_steps=len(timed),
+                launches={"skinning": launches}, launches_per_step=per_step, eval_batches=eval_batches,
+                images_per_s=B * len(timed) / (sum(h["wall_ms_per_step"] for h in timed) / 1e3),
+                ms_per_step=wall_ms, loader_wait_ms_per_step=phase_ms["data"],
+                loader_wait_share=phase_ms["data"] / wall_ms, step_dispatch_ms=phase_ms["dispatch"],
+                step_sync_ms=phase_ms["sync"], first_step_ms=summaries[0]["wall_ms_per_step"],
+                first_step_loader_wait_ms=summaries[0]["phases_ms"]["data"],
+                per_step=[{k: h[k] for k in ("step", "wall_ms_per_step", "phases_ms")} for h in summaries],
+                checkpoint_s=saves[0]["seconds"], checkpoint_gb=saves[0]["bytes"] / 1e9,
+                eval_s=evals[0]["seconds"], run_s=run_s, peak_mem_gib=peak_gib,
+                loss=[h["metrics"]["loss"] for h in summaries], card=smi)
+
+            # What was saved equals the live state (the eval that followed
+            # changes nothing the checkpoint holds).
+            ck_path = saves[0]["path"]
+            saved = torch.load(ck_path, map_location="cpu", weights_only=True)
+            fits_path = os.path.join(opts.checkpoint_dir, "slp-4mod-train_fits.npy")
+            saved_fits = np.load(fits_path)
+            live = trainer.state
+            check(all(torch.equal(v.cpu(), saved["model"][k]) for k, v in live.model.state_dict().items()),
+                  "train driver: the checkpoint's weights differ from the live model's")
+            check(torch.equal(live.generator.get_state(), saved["generator"]), "checkpoint: generator state")
+            check(np.array_equal(saved_fits, live.fits.cpu().numpy()), "checkpoint: fits")
+
+            # The step alone on a loaded batch, no loader running beside it:
+            # the driver's step against phase 5's.
+            batch = next(iter(CheckpointDataLoader(trainer.train_ds, batch_size=B, num_workers=opts.num_workers,
+                                                   seed=0)))[1]
+            feed = {k: v for k, v in batch.items() if k in trainer.feed_keys}
+            state = trainer.train_step(trainer.state, feed)[0]
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(2):
+                state = trainer.train_step(state, feed)[0]
+            end.record()
+            torch.cuda.synchronize()
+            alone_ms = start.elapsed_time(end) / 2
+            log("train_driver_step_alone", ms_per_step=alone_ms, host_ms_per_step=1e3 * (time.perf_counter() - t0) / 2,
+                driver_ms_per_step=wall_ms, driver_dispatch_ms=phase_ms["dispatch"],
+                uint8_bytes_per_batch=sum(np.asarray(v).nbytes for v in feed.values()), card=smi)
+            del trainer, state, live, feed, batch
+            torch.cuda.empty_cache()
+
+            # Resume in-process from the saved .pt: the state as saved, then
+            # one more step (time_to_run 0 saves and stops after it).
+            t0 = time.perf_counter()
+            _, resumed, eval_fn = train_gpu.setup(args + ["--resume", "--num_epochs", "2", "--time_to_run", "0"])
+            resume_s = time.perf_counter() - t0
+            rs = resumed.state
+            check((resumed.epoch0, resumed.checkpoint_batch_idx, resumed.step_count) == (1, 0, steps),
+                  f"resume: epoch {resumed.epoch0}, batch {resumed.checkpoint_batch_idx}, step {resumed.step_count}")
+            check(np.array_equal(resumed.dataset_perm, saved["dataset_perm"].numpy()), "resume: dataset_perm")
+            params = list(rs.model.parameters())
+            opt_saved = saved["optimizer"]["state"]
+            check(len(opt_saved) == len(params), "resume: Adam state count")
+            adam_equal = all(torch.equal(rs.optimizer.state[p][n].cpu(), opt_saved[i][n])
+                             for i, p in enumerate(params) for n in ("exp_avg", "exp_avg_sq", "step"))
+            nonzero = sum(int(bool(opt_saved[i]["exp_avg"].abs().max() > 0)) for i in range(len(params)))
+            adam_steps = {float(opt_saved[i]["step"]) for i in range(len(params))}
+            check(adam_equal and nonzero > 0 and adam_steps == {float(steps)},
+                  f"resume: Adam moments equal {adam_equal}, non-zero in {nonzero}, steps {adam_steps}")
+            check(torch.equal(rs.generator.get_state(), saved["generator"]), "resume: generator state")
+            check(np.array_equal(rs.fits.cpu().numpy(), saved_fits), "resume: fits")
+            del saved
+            sk.launches = 0
+            t0 = time.perf_counter()
+            resumed.train(eval_fn=eval_fn)
+            torch.cuda.synchronize()
+            more_s = time.perf_counter() - t0
+            more = [h for h in resumed.history if h["kind"] == "summary"]
+            check(resumed.step_count == steps + 1 and len(more) == 1 and sk.launches == 6 + 2 * N
+                  and all(np.isfinite(v) for v in more[0]["metrics"].values()),
+                  f"resumed run: step {resumed.step_count}, {sk.launches} skinning launches")
+            check(os.path.exists(os.path.join(opts.checkpoint_dir, "epoch_1_1.pt")), "resumed run: no epoch_1_1.pt")
+            log("train_driver_resume", checkpoint=os.path.basename(ck_path), setup_s=resume_s,
+                adam_moments_nonzero_params=nonzero, params=len(params), adam_steps=sorted(adam_steps),
+                step=resumed.step_count, step_ms=more[0]["wall_ms_per_step"], step_and_save_s=more_s,
+                launches={"skinning": sk.launches}, loss=more[0]["metrics"]["loss"], card=smi)
+            del resumed, rs, params
+            torch.cuda.empty_cache()
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return per_step, launches, steps
+
+
 def main() -> int:
     import torch
 
@@ -824,6 +985,9 @@ def main() -> int:
     # 6. eval driver
     launches_eval_driver, eval_driver_batches = eval_driver_phase(torch, np, dev, smi, cuda_ms)
 
+    # 7. train driver
+    launches_train_driver_step, launches_train_driver, train_driver_steps = train_driver_phase(torch, np, dev, smi)
+
     kernels = [{
         "name": "skinning", "route": "cuda",
         "source": "inbed_pose_estimation_tpu_torch/ops/csrc/skinning.cu",
@@ -836,6 +1000,8 @@ def main() -> int:
         "bound_by_b64": timing[64]["bound_by"], "eager_ms_b64": timing[64]["eager_ms"],
         "launches_train_step": launches_train_step,
         "launches_eval_driver": launches_eval_driver, "eval_driver_batches": eval_driver_batches,
+        "launches_train_driver_step": launches_train_driver_step, "launches_train_driver": launches_train_driver,
+        "train_driver_steps": train_driver_steps,
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

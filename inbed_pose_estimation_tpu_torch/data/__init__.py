@@ -1,4 +1,4 @@
-from .dataset import BaseDataset
+from .dataset import BaseDataset, MixedDataset
 from .loader import CheckpointDataLoader, collate
 
-__all__ = ["BaseDataset", "CheckpointDataLoader", "collate"]
+__all__ = ["BaseDataset", "CheckpointDataLoader", "MixedDataset", "collate"]

@@ -1,22 +1,30 @@
-"""SLP multi-modal evaluation dataset: npz index reader and per-sample host
-decode.
+"""SLP multi-modal dataset: npz index reader and per-sample host decode,
+for evaluation and for training.
 
-The port's copy of the JAX package's `BaseDataset` for `is_train=False`.
-It loads the npz index (imgname / irimgname / depthname / pmname, center,
+The port's copy of the JAX package's `BaseDataset` and `MixedDataset`.  It
+loads the npz index (imgname / irimgname / depthname / pmname, center,
 scale, pose, shape, S, part, openpose, gender), reads the 4 covered images,
 their 4 uncovered counterparts and the uncover body mask through the
 reference's filename rewriting (cover1/cover2 -> uncover, PM_aligned ->
-masks), crops them on the host exactly as the JAX package does, and emits a
-dict of numpy arrays.  Images leave as [C, H, W] float32, as the reference's
+masks), draws the training augmentation (flip, channel noise, rotation,
+scale) as the JAX package does, crops on the host exactly as it does, and
+emits a dict of numpy arrays.  Images leave as [C, H, W], as the reference's
 torch dataset emitted them (the JAX package emits [H, W, C]); every other
-key keeps the JAX package's shape.  With `options.device_preprocess` it
-emits the raw uint8 frames ([C, H, W]) and the crop box instead, for
-`data.device_preprocess`.
+key keeps the JAX package's shape.  Three image feeds:
+  * float (eval, and training with `uint8_feed` off): noised, normalized
+    float32;
+  * uint8 (training with `options.uint8_feed`): the post-crop, post-flip
+    uint8 images and the drawn noise factors `pixel_noise` [3], decoded on
+    the card by `data.device_preprocess.decode_uint8_batch` (4x fewer bytes
+    to copy);
+  * raw (eval with `options.device_preprocess`): the uint8 frames and the
+    crop box, for the device crop.
 """
 
 from __future__ import annotations
 
 from os.path import join
+from typing import Optional
 
 import numpy as np
 from scipy import ndimage
@@ -26,7 +34,11 @@ from .. import config, constants
 from .image_io import read_gray, read_rgb
 from .transforms import crop, flip_img, flip_kp, flip_pose, rot_aa, transform
 
-_TRAINER_SLICE = "is not ported yet: ROADMAP Queue 1 item 6 (the trainer driver)"
+# Options of the JAX package's dataset that the port does not implement.
+_NOT_PORTED = {
+    "fast_preprocess": "is not ported yet: ROADMAP Queue 2 (the port's copy of ops/native/preprocess.cc)",
+    "crop_cache": "is not ported yet: ROADMAP Queue 1 item 7 (the crop cache)",
+}
 
 
 def _normalize(img01: np.ndarray, mean, std) -> np.ndarray:
@@ -39,22 +51,29 @@ def _chw(img: np.ndarray) -> np.ndarray:
 
 
 class BaseDataset:
-    """Map-style evaluation dataset over an npz index."""
+    """Map-style dataset over an npz index (an eval split unless
+    `is_train`)."""
 
     def __init__(self, options=None, dataset: str = "slp-4mod-uncover", ignore_3d: bool = False,
-                 is_train: bool = False):
-        if is_train:
-            raise NotImplementedError(f"BaseDataset(is_train=True) {_TRAINER_SLICE}")
-        for flag in ("fast_preprocess", "uint8_feed", "crop_cache"):
+                 use_augmentation: bool = True, is_train: bool = False):
+        for flag, why in _NOT_PORTED.items():
             if getattr(options, flag, None):
-                raise NotImplementedError(f"BaseDataset option '{flag}' {_TRAINER_SLICE}")
+                raise NotImplementedError(f"BaseDataset option '{flag}' {why}")
         self.dataset = dataset
+        self.is_train = is_train
+        self.options = options
+        self.use_augmentation = use_augmentation
         self.img_res = int(getattr(options, "img_res", constants.IMG_RES) or constants.IMG_RES)
         # Raw-decode mode: uint8 frames and the crop box only, for the
-        # device crop (data/device_preprocess.py).
-        self.return_raw = bool(getattr(options, "device_preprocess", False))
+        # device crop (data/device_preprocess.py); eval only.
+        self.return_raw = bool(getattr(options, "device_preprocess", False)) and not is_train
+        # uint8 training feed: post-crop/flip uint8 images and the noise
+        # factors; the train step applies noise and normalization on the
+        # card, which agrees with the float feed to one float32 ulp (the
+        # host multiplies the noise in float64, the card in float32).
+        self.uint8_feed = bool(getattr(options, "uint8_feed", False)) and is_train
         self.img_dir = config.dataset_folder(dataset)
-        self.data = np.load(config.dataset_file(dataset, is_train=False), allow_pickle=True)
+        self.data = np.load(config.dataset_file(dataset, is_train=is_train), allow_pickle=True)
         self.imgname = self.data["imgname"]
 
         def _names(key):
@@ -95,26 +114,47 @@ class BaseDataset:
             self.gender = -1 * np.ones(len(self.imgname), np.int32)
         self.length = self.scale.shape[0]
 
-    def augm_params(self):
-        """(flip, channel noise, rotation, scale): no augmentation at eval."""
-        return 0, np.ones(3), 0.0, 1.0
+    def augm_params(self, rng: Optional[np.random.Generator] = None):
+        """(flip, channel noise [3], rotation in degrees, scale), drawn from
+        `rng` (an unseeded generator when None) in the JAX package's order;
+        no augmentation at eval or with `use_augmentation` off."""
+        rng = rng or np.random.default_rng()
+        flip, pn, rot, sc = 0, np.ones(3), 0.0, 1.0
+        if self.is_train and self.use_augmentation:
+            noise_factor = getattr(self.options, "noise_factor", 0.4)
+            rot_factor = getattr(self.options, "rot_factor", 15.0)
+            scale_factor = getattr(self.options, "scale_factor", 0.15)
+            if rng.uniform() <= 0.5:
+                flip = 1
+            pn = rng.uniform(1 - noise_factor, 1 + noise_factor, 3)
+            rot = min(2 * rot_factor, max(-2 * rot_factor, rng.normal() * rot_factor))
+            sc = min(1 + scale_factor, max(1 - scale_factor, rng.normal() * scale_factor + 1))
+            if rng.uniform() <= 0.6:
+                rot = 0.0
+        return flip, pn, rot, sc
 
-    def rgb_processing(self, rgb_img, center, scale, rot, flip, pn):
+    def rgb_processing(self, rgb_img, center, scale, rot, flip, pn, as_uint8=False):
+        """[H, W, 3]: noised in [0, 1], or the uint8 crop with `as_uint8`."""
         img = crop(rgb_img, center, scale, [self.img_res, self.img_res], rot=rot)
         if flip:
             img = np.ascontiguousarray(flip_img(img))
+        if as_uint8:
+            return img.astype(np.uint8)
         img = img.astype(np.float32)
         for c in range(3):
             img[:, :, c] = np.clip(img[:, :, c] * pn[c], 0, 255)
-        return img / 255.0  # [H, W, 3]
+        return img / 255.0
 
-    def gray_processing(self, gray_img, center, scale, rot, flip, pn):
+    def gray_processing(self, gray_img, center, scale, rot, flip, pn, as_uint8=False):
+        """[H, W, 1]: noised in [0, 1], or the uint8 crop with `as_uint8`."""
         img = crop(gray_img, center, scale, [self.img_res, self.img_res], rot=rot)
         if flip:
             img = np.ascontiguousarray(flip_img(img))
+        if as_uint8:
+            return img.astype(np.uint8)[:, :, None]
         img = img.astype(np.float32)
         img = np.clip(img * pn[0], 0, 255)
-        return img[:, :, None] / 255.0  # [H, W, 1]
+        return img[:, :, None] / 255.0
 
     def j2d_processing(self, kp, center, scale, r, f):
         kp = kp.copy()
@@ -180,10 +220,10 @@ class BaseDataset:
             "dataset_name": self.dataset,
         }
 
-    def __getitem__(self, index):
+    def __getitem__(self, index, rng: Optional[np.random.Generator] = None):
         scale = self.scale[index].copy()
         center = self.center[index].copy()
-        flip, pn, rot, sc = self.augm_params()
+        flip, pn, rot, sc = self.augm_params(rng)
 
         imgname = join(self.img_dir, str(self.imgname[index]))
         irname = join(self.img_dir, str(self.irimgname[index]))
@@ -217,41 +257,95 @@ class BaseDataset:
             item["orig_shape"] = orig_shape
             return item
 
-        img = self.rgb_processing(img, center, sc * scale, rot, flip, pn)
-        ir_img = self.gray_processing(ir_img, center, sc * scale, rot, flip, pn)
-        depth_img = self.gray_processing(depth_img, center, sc * scale, rot, flip, pn)
-        pm_img = self.gray_processing(pm_img, center, sc * scale, rot, flip, pn)
+        u8 = self.uint8_feed
+        box = (center, sc * scale, rot, flip, pn)
+        img = self.rgb_processing(img, *box, as_uint8=u8)
+        ir_img = self.gray_processing(ir_img, *box, as_uint8=u8)
+        depth_img = self.gray_processing(depth_img, *box, as_uint8=u8)
+        pm_img = self.gray_processing(pm_img, *box, as_uint8=u8)
 
         # Uncovered counterparts through the reference's filename rewriting.
         def unc(p):
             return p.replace("cover1", "uncover").replace("cover2", "uncover")
 
-        img_unc = self.rgb_processing(read_rgb(unc(imgname)), center, sc * scale, rot, flip, pn)
-        ir_unc = self.gray_processing(read_gray(unc(irname)), center, sc * scale, rot, flip, pn)
-        depth_unc = self.gray_processing(read_gray(unc(depthname)), center, sc * scale, rot, flip, pn)
-        pm_unc = self.gray_processing(read_gray(unc(pmname)), center, sc * scale, rot, flip, pn)
-        mask_unc = self.gray_processing(read_gray(unc(pmname).replace("PM_aligned", "masks")),
-                                        center, sc * scale, rot, flip, pn)
-        pm_contact = self.gen_contact(pm_img, mask_unc, sigma=1, edges=True)
+        img_unc = self.rgb_processing(read_rgb(unc(imgname)), *box)  # float in both feeds
+        ir_unc = self.gray_processing(read_gray(unc(irname)), *box, as_uint8=u8)
+        depth_unc = self.gray_processing(read_gray(unc(depthname)), *box, as_uint8=u8)
+        pm_unc = self.gray_processing(read_gray(unc(pmname)), *box, as_uint8=u8)
+        mask_unc = self.gray_processing(read_gray(unc(pmname).replace("PM_aligned", "masks")), *box, as_uint8=u8)
 
-        item = {
-            "img": _normalize(img, constants.IMG_NORM_MEAN, constants.IMG_NORM_STD),
-            "ir_img": _normalize(ir_img, constants.IR_NORM_MEAN, constants.IR_NORM_STD),
-            "depth_img": _normalize(depth_img, constants.DEPTH_NORM_MEAN, constants.DEPTH_NORM_STD),
-            "pm_img": _normalize(pm_img, constants.PM_NORM_MEAN, constants.PM_NORM_STD),
-            "img_uncover": img_unc,
-            "ir_img_uncover": _normalize(ir_unc, constants.IR_NORM_MEAN, constants.IR_NORM_STD),
-            "depth_img_uncover": _normalize(depth_unc, constants.DEPTH_NORM_MEAN, constants.DEPTH_NORM_STD),
-            "pm_img_uncover": _normalize(pm_unc, constants.PM_NORM_MEAN, constants.PM_NORM_STD),
-            "mask_uncover": mask_unc.astype(np.float32),
-            "pm_contact": pm_contact.astype(np.float32),
-        }
+        if u8:
+            # The contact map takes the noised [0, 1] views, derived with
+            # the card's decode arithmetic.
+            pm_f = np.clip(pm_img.astype(np.float32) * pn[0], 0, 255) / 255.0
+            mask_f = np.clip(mask_unc.astype(np.float32) * pn[0], 0, 255) / 255.0
+            pm_contact = self.gen_contact(pm_f, mask_f, sigma=1, edges=True)
+            item = {
+                "img": img, "ir_img": ir_img, "depth_img": depth_img, "pm_img": pm_img,
+                "img_uncover": img_unc, "ir_img_uncover": ir_unc, "depth_img_uncover": depth_unc,
+                "pm_img_uncover": pm_unc, "mask_uncover": mask_unc,
+            }
+        else:
+            pm_contact = self.gen_contact(pm_img, mask_unc, sigma=1, edges=True)
+            item = {
+                "img": _normalize(img, constants.IMG_NORM_MEAN, constants.IMG_NORM_STD),
+                "ir_img": _normalize(ir_img, constants.IR_NORM_MEAN, constants.IR_NORM_STD),
+                "depth_img": _normalize(depth_img, constants.DEPTH_NORM_MEAN, constants.DEPTH_NORM_STD),
+                "pm_img": _normalize(pm_img, constants.PM_NORM_MEAN, constants.PM_NORM_STD),
+                "img_uncover": img_unc,
+                "ir_img_uncover": _normalize(ir_unc, constants.IR_NORM_MEAN, constants.IR_NORM_STD),
+                "depth_img_uncover": _normalize(depth_unc, constants.DEPTH_NORM_MEAN, constants.DEPTH_NORM_STD),
+                "pm_img_uncover": _normalize(pm_unc, constants.PM_NORM_MEAN, constants.PM_NORM_STD),
+                "mask_uncover": mask_unc.astype(np.float32),
+            }
+        item["pm_contact"] = pm_contact.astype(np.float32)
         item = {k: _chw(v) for k, v in item.items()}
+        if u8:
+            item["pixel_noise"] = np.asarray(pn[:3], np.float32)
         item.update(self._labels(index, pose, center, sc * scale, rot, flip))
         item["betas"] = betas.astype(np.float32)
         item["orig_shape"] = orig_shape
         item["maskname"] = str(self.maskname[index]) if self.maskname is not None else ""
         item["partname"] = str(self.partname[index]) if self.partname is not None else ""
+        return item
+
+    def __len__(self):
+        return self.length
+
+
+class MixedDataset:
+    """A mixture of datasets, `options.data_train` = "name" or
+    "name1:ratio1+name2:ratio2+...": each index of the virtual range
+    [0, len) draws its source by the normalized partition, so an epoch
+    realizes the mixture.  Items carry global sample indices (the source's
+    block offset in the fits store plus its local index), with one
+    [N_i, 82] block per source in `fits_layout` order."""
+
+    def __init__(self, options, **kwargs):
+        spec = getattr(options, "data_train", "slp-4mod-train")
+        parts = []
+        for token in spec.split("+"):
+            if ":" in token:
+                name, ratio = token.split(":")
+                parts.append((name, float(ratio)))
+            else:
+                parts.append((token, 1.0))
+        total = sum(r for _, r in parts)
+        self.partition = [(name, r / total) for name, r in parts]
+
+        self.datasets = [BaseDataset(options, name, **kwargs) for name, _ in self.partition]
+        self.length = max(len(ds) for ds in self.datasets)
+        self.fits_layout = [(name, len(ds)) for (name, _), ds in zip(self.partition, self.datasets)]
+        self.fits_offsets = np.cumsum([0] + [n for _, n in self.fits_layout])[:-1]
+        bounds = np.cumsum([r for _, r in self.partition])
+        self._bounds = bounds / bounds[-1]
+
+    def __getitem__(self, index):
+        frac = (index % self.length) / self.length
+        ds_idx = min(int(np.searchsorted(self._bounds, frac, side="right")), len(self.datasets) - 1)
+        ds = self.datasets[ds_idx]
+        item = ds[index % len(ds)]
+        item["sample_index"] = int(self.fits_offsets[ds_idx]) + int(item["sample_index"])
         return item
 
     def __len__(self):

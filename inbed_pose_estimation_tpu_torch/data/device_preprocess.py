@@ -1,5 +1,6 @@
-"""Eval preprocessing on the device: crop, resize and normalize a batch of
-raw frames in one pass of tensor code (plain torch, no hand-written kernel).
+"""Preprocessing on the device (plain torch, no hand-written kernel): the
+eval path's crop, resize and normalize of a batch of raw frames, and the
+training path's decode of the uint8 feed (`decode_uint8_batch`).
 
 `crop_resize` computes what the JAX package's `crop_resize` computes with
 `jax.image.scale_and_translate(method="linear")`, which antialiases: when the
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from .. import constants
-from ..device import resolve_device
+from ..device import constant, resolve_device
 
 _STATS = {
     "img": (constants.IMG_NORM_MEAN, constants.IMG_NORM_STD),
@@ -88,3 +89,43 @@ def make_device_preprocess(res: int = constants.IMG_RES, device: str | torch.dev
         return out
 
     return preprocess
+
+
+# Per-key statistics of the uint8 training feed; None: no normalization (the
+# mask is compared in [0, 1]).  The uncover targets take their modality's
+# statistics, as on the host path.
+_UINT8_FEED_STATS = {
+    "img": (constants.IMG_NORM_MEAN, constants.IMG_NORM_STD),
+    "ir_img": (constants.IR_NORM_MEAN, constants.IR_NORM_STD),
+    "depth_img": (constants.DEPTH_NORM_MEAN, constants.DEPTH_NORM_STD),
+    "pm_img": (constants.PM_NORM_MEAN, constants.PM_NORM_STD),
+    "ir_img_uncover": (constants.IR_NORM_MEAN, constants.IR_NORM_STD),
+    "depth_img_uncover": (constants.DEPTH_NORM_MEAN, constants.DEPTH_NORM_STD),
+    "pm_img_uncover": (constants.PM_NORM_MEAN, constants.PM_NORM_STD),
+    "mask_uncover": None,
+}
+
+
+def decode_uint8_batch(batch: dict) -> dict:
+    """Decode the uint8 training feed where the tensors are: for each uint8
+    image [B, C, H, W] of `_UINT8_FEED_STATS`, clip(u8 * pn, 0, 255) / 255
+    with the batch's noise factors `pixel_noise` [B, 3] (all three for RGB,
+    the first for one channel), then its modality's normalization, in
+    float32.  The host's float path does the same operations but multiplies
+    the noise in float64, so the two agree to one float32 ulp.  A batch
+    without `pixel_noise` (the float feed) is returned as it is."""
+    if "pixel_noise" not in batch:
+        return batch
+    out = dict(batch)
+    pn = batch["pixel_noise"].to(torch.float32)
+    for key, stats in _UINT8_FEED_STATS.items():
+        x = out.get(key)
+        if x is None or x.dtype != torch.uint8:
+            continue
+        n = pn[:, :3] if x.shape[1] == 3 else pn[:, :1]
+        xf = torch.clamp(x.to(torch.float32) * n[:, :, None, None], 0.0, 255.0) / 255.0
+        if stats is not None:
+            mean, std = (constant(tuple(v), torch.float32, x.device).view(-1, 1, 1) for v in stats)
+            xf = (xf - mean) / std
+        out[key] = xf
+    return out

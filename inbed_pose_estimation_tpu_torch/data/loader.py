@@ -99,4 +99,8 @@ class CheckpointDataLoader:
                     raise batch
                 yield b, batch
         finally:
+            # Left early (a time-boxed exit): stop the producer, and empty
+            # the queue so that a put it is blocked in returns.
             stop.set()
+            while not q.empty():
+                q.get_nowait()

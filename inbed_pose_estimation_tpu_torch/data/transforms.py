@@ -1,9 +1,9 @@
 """Host-side crop and augmentation kernels (numpy + Pillow).
 
 The port's copy of the JAX package's `data/transforms.py`, which reproduces
-the reference's `scipy.misc.imresize` semantics: bytescale to uint8, then a
-Pillow resize.  Crops are bit-identical to the JAX package's.  The rotated
-crop (`rot != 0`) is training-only and not ported yet.
+the reference's `scipy.misc.imresize` / `imrotate` semantics: bytescale to
+uint8, then a Pillow resize or rotate.  Crops, rotated ones included, are
+bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -12,9 +12,6 @@ import numpy as np
 from PIL import Image
 
 from .. import constants
-
-_ROTATED_CROP = "the rotated crop (rot != 0) is training-only and not ported yet: ROADMAP Queue 1 item 6"
-
 
 def get_transform(center, scale, res, rot=0):
     """Bbox-to-crop affine [3, 3]: the box is (center, h = 200 * scale)."""
@@ -77,12 +74,28 @@ def _imresize_uint8(img: np.ndarray, size, interp="bilinear") -> np.ndarray:
     return np.asarray(out)
 
 
+def _imrotate_uint8(img: np.ndarray, angle: float) -> np.ndarray:
+    """`scipy.misc.imrotate` work-alike: bytescale to uint8, bilinear Pillow
+    rotate by `angle` degrees counter-clockwise about the centre."""
+    out = Image.fromarray(_bytescale(img)).rotate(angle, resample=Image.BILINEAR)
+    return np.asarray(out)
+
+
 def crop(img: np.ndarray, center, scale, res, rot=0) -> np.ndarray:
-    """Crop around (center, 200 * scale) and resize to `res`; uint8 out."""
-    if rot != 0:
-        raise NotImplementedError(_ROTATED_CROP)
+    """Crop around (center, 200 * scale), rotated by `rot` degrees, and
+    resize to `res`; uint8 out.
+
+    A rotated crop takes a box padded by `pad` on every side, so that the
+    rotation brings no zeros into the kept middle, bytescales and rotates
+    it, then cuts the padding off before the resize (whose bytescale is then
+    a no-op on the uint8 box)."""
     ul = np.array(transform([1, 1], center, scale, res, invert=1)) - 1
     br = np.array(transform([res[0] + 1, res[1] + 1], center, scale, res, invert=1)) - 1
+
+    pad = int(np.linalg.norm(br - ul) / 2 - float(br[1] - ul[1]) / 2)
+    if rot != 0:
+        ul -= pad
+        br += pad
 
     new_shape = [br[1] - ul[1], br[0] - ul[0]]
     if img.ndim > 2:
@@ -94,6 +107,10 @@ def crop(img: np.ndarray, center, scale, res, rot=0) -> np.ndarray:
     old_x = max(0, ul[0]), min(img.shape[1], br[0])
     old_y = max(0, ul[1]), min(img.shape[0], br[1])
     new_img[new_y[0]:new_y[1], new_x[0]:new_x[1]] = img[old_y[0]:old_y[1], old_x[0]:old_x[1]]
+
+    if rot != 0:
+        new_img = _imrotate_uint8(new_img, rot)
+        new_img = new_img[pad:-pad, pad:-pad]
     return _imresize_uint8(new_img, res)
 
 

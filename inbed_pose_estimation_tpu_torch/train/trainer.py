@@ -1,5 +1,6 @@
-"""The training step of the concat-input family (hmr, hmr4mod,
-irhmr/depthhmr/pmhmr, mulhmr, rechmr, cashmr, cashmrV2, rec3hmr, cas3hmr).
+"""Training of the concat-input family (hmr, hmr4mod, irhmr/depthhmr/pmhmr,
+mulhmr, rechmr, cashmr, cashmrV2, rec3hmr, cas3hmr): the train step, and
+`Trainer`, the epoch driver around it.
 
 One step, in order:
 
@@ -16,31 +17,44 @@ kernel, 6 + 2 * num_smplify_iters times (5 without SMPLify).
 The state is updated in place: the model's parameters and BatchNorm
 running statistics, the optimizer's moments and the dropout generator;
 the fits store is a new tensor each step.
+
+`Trainer` feeds the step from a resumable loader, one device, and keeps
+the run's state across steps: summaries, checkpoints (`epoch_<E>_<B>.pt`),
+the graceful save-and-exit on `time_to_run`, the eval at each epoch's end,
+and resume from its own checkpoints, the reference's `.pt` or the JAX
+package's `.npz`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 
+import numpy as np
 import torch
 from torch import nn
 
-from .. import constants
+from .. import config, constants
+from ..data.device_preprocess import decode_uint8_batch
+from ..data.loader import CheckpointDataLoader
 from ..device import resolve_device
 from ..fitting import GMMPrior, make_fitting_loss, make_smplify
 from ..geometry import estimate_translation, perspective_projection, rotmat_to_aa, weak_perspective_to_cam_t
 from ..models import cascade_apply
 from ..smpl.model import SMPLModel, smpl_forward
+from ..utils.profiling import StepTimer
 from . import losses as L
-from .fits_dict import fits_get, fits_set
+from .checkpoint import latest_checkpoint, load_pretrained, resume_train_state, save_checkpoint
+from .fits_dict import FitsStore, fits_get, fits_set
 
 # Recovered image -> the batch key of its ground truth.
 UNCOVER_KEY = {"depth": "depth_img_uncover", "ir": "ir_img_uncover", "pm": "pm_img_uncover"}
 
 # Batch keys the step reads besides the model's modalities and the
-# ground truth of its recovery heads.
+# ground truth of its recovery heads (`pixel_noise` only in the uint8 feed).
 SCALAR_KEYS = ("keypoints", "pose", "betas", "pose_3d", "has_smpl", "has_pose_3d",
-               "is_flipped", "rot_angle", "sample_index")
+               "is_flipped", "rot_angle", "sample_index", "pixel_noise")
 
 
 @dataclasses.dataclass
@@ -82,9 +96,12 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
     the modalities and recovery targets as [B, C, H, W] (NCHW), keypoints
     [B, 49, 3] in [-1, 1] with confidence, pose [B, 72], betas [B, 10],
     pose_3d [B, 24, 4], has_smpl / has_pose_3d / is_flipped / rot_angle
-    (degrees) [B] and sample_index [B] (rows of the fits store).  metrics
-    holds the loss and its parts as detached scalars on the device.
-    Floating inputs are cast to the type of the model's parameters.
+    (degrees) [B] and sample_index [B] (rows of the fits store).  The images
+    are either normalized floats (the float feed) or the uint8 feed with its
+    `pixel_noise` [B, 3]: uint8 images cross to the device as uint8 and are
+    decoded there (`decode_uint8_batch`) before the cascade.  metrics holds
+    the loss and its parts as detached scalars on the device.  Floating
+    inputs are cast to the type of the model's parameters.
 
     After a step each parameter's `.grad` holds the gradient that Adam
     took.  Only concat-input models are ported; the others raise.
@@ -207,8 +224,15 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
 
     def to_device(batch):
         dtype = next(model.parameters()).dtype
-        return {k: torch.as_tensor(v).to(dev, torch.int64 if k == "sample_index" else dtype)
-                for k, v in batch.items()}
+
+        def cast(k, v):
+            v = torch.as_tensor(v)
+            if v.dtype == torch.uint8:
+                return v.to(dev)
+            return v.to(dev, torch.int64 if k == "sample_index" else dtype)
+
+        decoded = decode_uint8_batch({k: cast(k, v) for k, v in batch.items()})
+        return {k: v.to(dtype) if v.is_floating_point() else v for k, v in decoded.items()}
 
     def train_step(state: TrainState, batch):
         model.train()
@@ -223,3 +247,129 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
         return dataclasses.replace(state, fits=fits, step=state.step + 1), metrics
 
     return train_step
+
+
+class Trainer:
+    """The epoch and step driver on one device.
+
+    `options` are the train CLI's (`train.options.parse_args`); `train_ds`
+    yields items of the training feed (a `MixedDataset` or `BaseDataset`
+    with `is_train=True`).  On construction: the train step, the fits store
+    (seeded from the checkpoint directory, then the static fits), the
+    `--pretrained_checkpoint` weights where their names and shapes match,
+    a fresh Adam and the dropout generator (seed + 1), then, with
+    `--resume`, the state of `--checkpoint` or else of the newest
+    checkpoint in the directory.  `history` collects what `train` measures,
+    one dict per event: "summary" (metrics, phase means in ms, wall ms per
+    step, images/s), "save" (path, bytes, seconds), "eval" (seconds).
+    """
+
+    def __init__(self, options, model, spec, smpl_model, prior, train_ds, summary_writer=None,
+                 device: str | torch.device = "cuda"):
+        dev = resolve_device(device)
+        self.options = options
+        self.model = model
+        self.spec = spec
+        self.train_ds = train_ds
+        self.summary_writer = summary_writer
+        self.train_step = make_train_step(model, spec, smpl_model, prior, options, device=dev)
+        self.feed_keys = step_feed_keys(spec)
+        layout = getattr(train_ds, "fits_layout", None) or [(options.data_train, len(train_ds))]
+        self.fits_store = FitsStore(layout, checkpoint_dir=options.checkpoint_dir,
+                                    static_fits_dir=config.asset("static_fits"), device=dev)
+        if getattr(options, "pretrained_checkpoint", None):
+            load_pretrained(model, options.pretrained_checkpoint)
+        self.state = init_train_state(model, options, self.fits_store.array, seed=options.seed + 1, device=dev)
+
+        self.epoch0, self.checkpoint_batch_idx, self.step_count, self.dataset_perm = 0, 0, 0, None
+        if options.resume:
+            # An explicit --checkpoint wins over the newest file.
+            ck = getattr(options, "checkpoint", None) or latest_checkpoint(options.checkpoint_dir)
+            if ck:
+                meta = resume_train_state(ck, self.state)
+                for group in self.state.optimizer.param_groups:
+                    group["lr"] = options.lr  # --lr, not the file's, as in the JAX package
+                self.epoch0 = int(meta.get("epoch", 0))
+                self.checkpoint_batch_idx = int(meta.get("batch_idx", 0))
+                self.step_count = int(meta.get("total_step_count", 0))
+                if meta.get("dataset_perm") is not None:
+                    self.dataset_perm = np.asarray(meta["dataset_perm"])
+        self.state.step = self.step_count
+        self.history: list[dict] = []
+
+    def _save(self, epoch: int, batch_idx: int, perm) -> None:
+        t0 = time.perf_counter()
+        self.fits_store.array = self.state.fits
+        self.fits_store.save()
+        path = save_checkpoint(self.options.checkpoint_dir, self.state, epoch=epoch, batch_idx=batch_idx,
+                               batch_size=self.options.batch_size, dataset_perm=perm,
+                               total_step_count=self.step_count)
+        self.history.append({"kind": "save", "step": self.step_count, "path": path,
+                             "bytes": os.path.getsize(path), "seconds": time.perf_counter() - t0})
+
+    def _eval(self, eval_fn) -> None:
+        t0 = time.perf_counter()
+        eval_fn(self)
+        self.history.append({"kind": "eval", "step": self.step_count, "seconds": time.perf_counter() - t0})
+
+    def train(self, eval_fn=None) -> None:
+        """Run the epochs from the resume point to `num_epochs`; `eval_fn`
+        (called with the trainer) runs every `test_steps` and after each
+        epoch's checkpoint."""
+        opts = self.options
+        start = time.time()
+        # Phases: "data" waits on the loader, "dispatch" is the step's host
+        # time (eager: most of the step), "sync" waits on the device for the
+        # summary's metrics, the step's one read-back.
+        timer = StepTimer()
+        window_t0, window_steps = time.time(), 0
+        for epoch in range(self.epoch0, opts.num_epochs):
+            ckpt = None
+            if epoch == self.epoch0 and self.dataset_perm is not None:
+                ckpt = {"dataset_perm": self.dataset_perm, "batch_idx": self.checkpoint_batch_idx}
+            loader = CheckpointDataLoader(self.train_ds, batch_size=opts.batch_size, shuffle=opts.shuffle_train,
+                                          num_workers=opts.num_workers, checkpoint=ckpt, seed=opts.seed + epoch)
+            it = iter(loader)
+            while True:
+                with timer.phase("data"):
+                    got = next(it, None)
+                if got is None:
+                    break
+                batch_idx, batch = got
+                with timer.phase("dispatch"):
+                    feed = {k: v for k, v in batch.items() if k in self.feed_keys}
+                    self.state, metrics = self.train_step(self.state, feed)
+                self.step_count += 1
+                window_steps += 1
+
+                if self.step_count % opts.summary_steps == 0:
+                    with timer.phase("sync"):
+                        m = {k: float(v) for k, v in metrics.items()}
+                    wall = time.time() - window_t0
+                    ips = opts.batch_size * window_steps / wall if wall > 0 else 0.0
+                    step_ms = 1000.0 * wall / window_steps
+                    if self.summary_writer is not None:
+                        for k, v in m.items():
+                            self.summary_writer.add_scalar(k, v, self.step_count)
+                        self.summary_writer.add_scalar("perf/images_per_sec", ips, self.step_count)
+                        self.summary_writer.add_scalar("perf/step_ms", step_ms, self.step_count)
+                    print(f"epoch {epoch} step {self.step_count}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items())
+                          + f" | {timer.summary()} wall_step={step_ms:.1f}ms ips={ips:.1f}", flush=True)
+                    self.history.append({"kind": "summary", "epoch": epoch, "step": self.step_count, "metrics": m,
+                                         "phases_ms": {k: 1e3 * v for k, v in timer.means.items()},
+                                         "steps": window_steps, "wall_ms_per_step": step_ms, "images_per_s": ips})
+                    timer.reset()
+                    window_t0, window_steps = time.time(), 0
+
+                if self.step_count % opts.checkpoint_steps == 0:
+                    self._save(epoch, batch_idx + 1, loader.dataset_perm)
+                if opts.test_steps and self.step_count % opts.test_steps == 0 and eval_fn:
+                    self._eval(eval_fn)
+                if time.time() - start > opts.time_to_run:
+                    it.close()
+                    self._save(epoch, batch_idx + 1, loader.dataset_perm)
+                    print("Timeout reached: checkpoint saved, exiting cleanly", flush=True)
+                    return
+            self._save(epoch + 1, 0, loader.dataset_perm)
+            if eval_fn:
+                self._eval(eval_fn)

@@ -7,7 +7,8 @@ writes it into the module's parameters and buffers: conv kernels
 scale / bias / mean / var -> weight / bias / running_mean / running_var.
 It maps the reference state-dict names of the HMRCore family the same way
 the JAX package's checkpoint converter does, and raises on any name or
-leaf left unmapped.
+leaf left unmapped.  `jax_state_entries` gives the same mapped arrays for
+a tolerant load, leaving out what the variables lack.
 
 `load_jax_adam_state` carries optax's Adam moments into a
 `torch.optim.Adam` over the same module.
@@ -108,6 +109,37 @@ def _to_torch_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
     return arr
 
 
+def _entries(module: nn.Module, variables: Mapping, strict: bool) -> dict:
+    """{state-dict key: flax leaf in the module's layout} for every key of
+    `module` with a flax counterpart.  `strict` raises ValueError for a key
+    with no mapping or no leaf and for a leaf that no key takes; otherwise
+    those are left out."""
+    flat = {}
+    for coll in ("params", "batch_stats"):
+        flat.update({(coll,) + k: v for k, v in _flatten(variables.get(coll, {})).items()})
+    out, used = {}, set()
+    for key in module.state_dict():
+        if key.endswith("num_batches_tracked") or key in _NOT_IN_FLAX:
+            continue
+        mapped = flax_path(key)
+        if mapped is None:
+            if strict:
+                raise ValueError(f"load_jax_variables: no flax mapping for '{key}'")
+            continue
+        path, leaf, coll = mapped
+        src = (coll,) + path + (leaf,)
+        if src not in flat:
+            if strict:
+                raise ValueError(f"load_jax_variables: '{key}' maps to {'/'.join(src)}, absent from the variables")
+            continue
+        out[key] = _to_torch_layout(np.array(flat[src], dtype=np.float32), leaf)  # a writable copy
+        used.add(src)
+    unused = sorted("/".join(k) for k in set(flat) - used)
+    if strict and unused:
+        raise ValueError(f"load_jax_variables: {len(unused)} flax leaves not taken by the module: {unused[:8]}")
+    return out
+
+
 @torch.no_grad()
 def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     """Copy flax `variables` into `module` in place; returns the module.
@@ -115,29 +147,21 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     Raises ValueError for a module key with no mapping or no flax leaf, a
     shape that disagrees, or a flax leaf that no module key takes.
     """
-    flat = {}
-    for coll in ("params", "batch_stats"):
-        flat.update({(coll,) + k: v for k, v in _flatten(variables.get(coll, {})).items()})
-    used = set()
-    for key, target in module.state_dict().items():
-        if key.endswith("num_batches_tracked") or key in _NOT_IN_FLAX:
-            continue
-        mapped = flax_path(key)
-        if mapped is None:
-            raise ValueError(f"load_jax_variables: no flax mapping for '{key}'")
-        path, leaf, coll = mapped
-        src = (coll,) + path + (leaf,)
-        if src not in flat:
-            raise ValueError(f"load_jax_variables: '{key}' maps to {'/'.join(src)}, absent from the variables")
-        arr = _to_torch_layout(np.array(flat[src], dtype=np.float32), leaf)  # a writable copy
+    state = module.state_dict()
+    for key, arr in _entries(module, variables, strict=True).items():
+        target = state[key]
         if tuple(arr.shape) != tuple(target.shape):
             raise ValueError(f"load_jax_variables: '{key}' has shape {tuple(target.shape)}, flax {arr.shape}")
         target.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
-        used.add(src)
-    unused = sorted("/".join(k) for k in set(flat) - used)
-    if unused:
-        raise ValueError(f"load_jax_variables: {len(unused)} flax leaves not taken by the module: {unused[:8]}")
     return module
+
+
+def jax_state_entries(module: nn.Module, variables: Mapping) -> dict:
+    """The entries of `module.state_dict()` that the flax `variables` hold,
+    as numpy arrays in the module's layout; keys without a mapping or a flax
+    leaf are left out and shapes are not checked (a tolerant load picks the
+    ones that fit)."""
+    return _entries(module, variables, strict=False)
 
 
 def _adam_moments(opt_state):

@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA skinning kernel against its plain
-version, SMPLify through it, and the training step on the card against
-the CPU.  Every test needs a CUDA device and skips without one (a CUDA
+version, SMPLify through it, the training step on the card against the
+CPU, and the uint8 feed decoded on the card.  Every test needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode); run them on the card with
 `python -m pytest tests/test_torch_port_cuda.py -m cuda`."""
 
@@ -128,7 +128,7 @@ def _small_step(device, dtype, feed_map, weights, num_smplify_iters=2, tf32=Fals
     from inbed_pose_estimation_tpu_torch.models import build_model
     from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step
 
-    options = build_parser().parse_args(["--run_smplify", "--img_res", "64", "--batch_size", "2",
+    options = build_parser().parse_args(["--name", "card", "--run_smplify", "--img_res", "64", "--batch_size", "2",
                                          "--num_smplify_iters", str(num_smplify_iters)])
     model, spec = build_model("cashmrV2", device=device, dropout_rate=0.0)
     model.load_state_dict(weights)
@@ -238,3 +238,50 @@ def test_device_crop_on_card_matches_cpu(cuda):
     cpu = crop_resize(img, center, scale, 224)
     card = crop_resize(img.to(cuda), center.to(cuda), scale.to(cuda), 224).cpu()
     assert (card - cpu).abs().max() <= 1e-5
+
+
+def test_uint8_feed_decodes_on_card_as_on_cpu(cuda, monkeypatch):
+    """decode_uint8_batch on the card against the CPU (equal: the same
+    float32 operations), and the train step's copy to the card: the uint8
+    images cross as uint8 and are decoded there."""
+    from inbed_pose_estimation_tpu_torch.data.device_preprocess import decode_uint8_batch
+    from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
+    from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step, step_feed_keys
+    from inbed_pose_estimation_tpu_torch.train import trainer as trainer_mod
+
+    rng = np.random.default_rng(10)
+    keys = ("img", "ir_img", "depth_img", "pm_img", "depth_img_uncover", "mask_uncover")
+    u8 = {k: torch.from_numpy(rng.integers(0, 256, (2, 3 if k == "img" else 1, 64, 64), dtype=np.uint8))
+          for k in keys}
+    u8["pixel_noise"] = torch.from_numpy(rng.uniform(0.6, 1.4, (2, 3)).astype(np.float32))
+    cpu = decode_uint8_batch(u8)
+    card = decode_uint8_batch({k: v.to(cuda) for k, v in u8.items()})
+    for k in keys:
+        assert card[k].device.type == "cuda" and card[k].dtype == torch.float32
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+
+    seen = {}
+
+    def spy(batch):
+        seen.update({k: (v.dtype, v.device.type) for k, v in batch.items()})
+        return decode_uint8_batch(batch)
+
+    monkeypatch.setattr(trainer_mod, "decode_uint8_batch", spy)
+    options = build_parser().parse_args(["--name", "card", "--img_res", "64", "--batch_size", "2"])
+    model, spec = build_model("cashmrV2", device=cuda)
+    batch = {k: v.numpy() for k, v in u8.items() if k != "mask_uncover"}
+    batch.update(keypoints=np.concatenate([rng.uniform(-0.8, 0.8, (2, 49, 2)), np.ones((2, 49, 1))], -1),
+                 pose=rng.normal(0, 0.2, (2, 72)), betas=rng.normal(0, 0.5, (2, 10)),
+                 pose_3d=np.concatenate([rng.normal(0, 0.3, (2, 24, 3)), np.ones((2, 24, 1))], -1),
+                 has_smpl=np.array([1.0, 0.0]), has_pose_3d=np.ones(2), is_flipped=np.array([0.0, 1.0]),
+                 rot_angle=np.array([10.0, 0.0]), sample_index=np.array([1, 3]))
+    assert set(batch) == step_feed_keys(spec)
+    state = init_train_state(model, options, np.zeros((4, 82)), device=cuda)
+    step = make_train_step(model, spec, synthetic_smpl_model(0, device=cuda), synthetic_gmm_prior(device=cuda),
+                           options, device=cuda)
+    state, metrics = step(state, batch)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    for k in ("img", "ir_img", "depth_img", "pm_img", "depth_img_uncover"):
+        assert seen[k] == (torch.uint8, "cuda"), (k, seen[k])
+    assert seen["pixel_noise"] == (torch.float32, "cuda")

@@ -1,8 +1,10 @@
-"""PyTorch port, data side of the eval driver, against the JAX package on the
-CPU: the synthetic tree, dataset items (host crop and raw frames), crop and
-uncrop, the loader, the device crop (K5), the mesh rasterizer (K3), the part
-renderer, checkpoints, config and the asset gate.  Images are [C, H, W] in
-the port and [H, W, C] in the JAX package; they are transposed only here."""
+"""PyTorch port, data side of the eval and train drivers, against the JAX
+package on the CPU: the synthetic tree, dataset items (host crop and raw
+frames; train items with their augmentation, float and uint8 feeds), crop
+(rotated too) and uncrop, the uint8 feed's decode, `MixedDataset`, the
+loader, the device crop (K5), the mesh rasterizer (K3), the part renderer,
+checkpoints, config and the asset gate.  Images are [C, H, W] in the port
+and [H, W, C] in the JAX package; they are transposed only here."""
 
 import filecmp
 import os
@@ -18,7 +20,9 @@ import torch
 from inbed_pose_estimation_tpu import config as j_config
 from inbed_pose_estimation_tpu.data import transforms as j_tf
 from inbed_pose_estimation_tpu.data.dataset import BaseDataset as JBaseDataset
+from inbed_pose_estimation_tpu.data.dataset import MixedDataset as JMixedDataset
 from inbed_pose_estimation_tpu.data.device_preprocess import crop_resize as j_crop_resize
+from inbed_pose_estimation_tpu.data.device_preprocess import decode_uint8_batch as j_decode_uint8_batch
 from inbed_pose_estimation_tpu.data.device_preprocess import make_device_preprocess as j_make_device_preprocess
 from inbed_pose_estimation_tpu.data.loader import CheckpointDataLoader as JLoader
 from inbed_pose_estimation_tpu.data.synthetic import write_synthetic_environment as j_write_env
@@ -26,8 +30,10 @@ from inbed_pose_estimation_tpu.ops import tri_raster as j_raster
 from inbed_pose_estimation_tpu.render.part_renderer import PartRenderer as JPartRenderer
 from inbed_pose_estimation_tpu_torch import config
 from inbed_pose_estimation_tpu_torch.data import transforms as tf
-from inbed_pose_estimation_tpu_torch.data.dataset import BaseDataset
-from inbed_pose_estimation_tpu_torch.data.device_preprocess import crop_resize, make_device_preprocess
+from inbed_pose_estimation_tpu_torch.data.dataset import BaseDataset, MixedDataset
+from inbed_pose_estimation_tpu_torch.data.device_preprocess import (
+    crop_resize, decode_uint8_batch, make_device_preprocess,
+)
 from inbed_pose_estimation_tpu_torch.data.loader import CheckpointDataLoader, collate
 from inbed_pose_estimation_tpu_torch.data.synthetic import write_synthetic_environment
 from inbed_pose_estimation_tpu_torch.ops import tri_raster
@@ -35,6 +41,9 @@ from inbed_pose_estimation_tpu_torch.render import PartRenderer
 
 RES = 64
 SPLITS = ("slp-4mod-uncover", "slp-4mod-cover1", "3dpw")
+# Train splits: the tree's own, and a 4-row subset of it under a second
+# name, so that a mixture has sources of two lengths.
+TRAIN_SPLITS = ("slp-4mod-train", "slp-multi")
 
 
 @pytest.fixture(scope="module")
@@ -42,12 +51,17 @@ def tree(tmp_path_factory):
     """The JAX package's synthetic tree (3 samples per subject), with both
     packages' split tables pointed at it for this module only."""
     env = j_write_env(str(tmp_path_factory.mktemp("jtree")), num_subjects=1, samples_per_subject=3)
+    with np.load(os.path.join(env["npz_path"], "slp_4mod_train.npz")) as train:
+        np.savez(os.path.join(env["npz_path"], "slp_multi_mod_train.npz"), **{k: train[k][:4] for k in train.files})
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("INBED_DATA_ROOT", env["data_root"])
         mp.setenv("INBED_NPZ_PATH", env["npz_path"])
-        for split in SPLITS:
+        for split in SPLITS + TRAIN_SPLITS:
             mp.setitem(j_config.DATASET_FOLDERS, split, config.dataset_folder(split))
+        for split in SPLITS:
             mp.setitem(j_config.DATASET_FILES[0], split, config.dataset_file(split))
+        for split in TRAIN_SPLITS:
+            mp.setitem(j_config.DATASET_FILES[1], split, config.dataset_file(split, is_train=True))
         yield env
 
 
@@ -105,16 +119,141 @@ def test_dataset_items_match_jax_bitwise(tree, split, raw):
 
 
 def test_dataset_rejects_what_the_trainer_slice_owns(tree):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        BaseDataset(_Opt(), "slp-4mod-uncover", is_train=True)
-
+    """The options of the JAX package's dataset that are not ported raise,
+    naming their ROADMAP item, in training and in eval."""
     class Fast(_Opt):
         fast_preprocess = True
 
-    with pytest.raises(NotImplementedError, match="fast_preprocess"):
-        BaseDataset(Fast(), "slp-4mod-uncover", is_train=False)
-    with pytest.raises(NotImplementedError, match="rotated crop"):
-        tf.crop(np.zeros((20, 20), np.float32), [10, 10], 0.1, [8, 8], rot=10)
+    class Cache(_Opt):
+        crop_cache = "/nowhere"
+
+    for opt, flag in ((Fast(), "fast_preprocess"), (Cache(), "crop_cache")):
+        for split, is_train in (("slp-4mod-train", True), ("slp-4mod-uncover", False)):
+            with pytest.raises(NotImplementedError, match=f"'{flag}' is not ported yet: ROADMAP"):
+                BaseDataset(opt, split, is_train=is_train)
+
+
+class _TrainOpt:
+    img_res = RES
+    noise_factor, rot_factor, scale_factor = 0.4, 15.0, 0.15
+
+    def __init__(self, uint8_feed):
+        self.uint8_feed = uint8_feed
+
+
+def _draws(seed):
+    """(flip, rot) that a train item draws from default_rng(seed)."""
+    return JBaseDataset.augm_params(type("D", (), {"is_train": True, "use_augmentation": True,
+                                                   "options": _TrainOpt(False)})(),
+                                    np.random.default_rng(seed))[::2]
+
+
+# Seeds whose draws are: flipped and rotated, rotated only, flipped only, neither.
+AUG_SEEDS = {"flip_rot": 12, "rot": 0, "flip": 2, "none": 5}
+
+
+def test_augmentation_seeds_cover_flip_and_rotation():
+    for name, seed in AUG_SEEDS.items():
+        flip, rot = _draws(seed)
+        assert bool(flip) == ("flip" in name) and (rot != 0) == ("rot" in name), (name, flip, rot)
+
+
+@pytest.mark.parametrize("uint8_feed", [False, True], ids=["float_feed", "uint8_feed"])
+@pytest.mark.parametrize("aug", sorted(AUG_SEEDS))
+def test_train_items_match_jax_bitwise(tree, aug, uint8_feed):
+    """A train item with its augmentation drawn from the same generator in
+    both packages: every key bitwise after the [C, H, W] transpose."""
+    seed = AUG_SEEDS[aug]
+    ours = BaseDataset(_TrainOpt(uint8_feed), "slp-4mod-train", is_train=True)
+    theirs = JBaseDataset(_TrainOpt(uint8_feed), "slp-4mod-train", is_train=True)
+    assert len(ours) == len(theirs) == 6
+    for i in (1, 4):
+        a = _nhwc_like(ours.__getitem__(i, rng=np.random.default_rng(seed)))
+        b = theirs.__getitem__(i, rng=np.random.default_rng(seed))
+        assert set(a) == set(b) and ("pixel_noise" in a) == uint8_feed
+        assert (a["rot_angle"] != 0) == ("rot" in aug) and bool(a["is_flipped"]) == ("flip" in aug)
+        for k, v in b.items():
+            if isinstance(v, str):
+                assert a[k] == v, k
+            else:
+                assert np.asarray(a[k]).dtype == np.asarray(v).dtype, k
+                np.testing.assert_array_equal(a[k], v, err_msg=k)
+        if uint8_feed:
+            assert a["img"].dtype == np.uint8 and a["mask_uncover"].shape == (RES, RES, 1)
+
+
+def test_train_item_without_augmentation_is_the_eval_crop(tree):
+    """use_augmentation=False draws nothing: the item equals JAX's without a
+    generator, with no flip, rotation, noise or rescale."""
+    ours = BaseDataset(_TrainOpt(False), "slp-4mod-train", is_train=True, use_augmentation=False)
+    theirs = JBaseDataset(_TrainOpt(False), "slp-4mod-train", is_train=True, use_augmentation=False)
+    a, b = _nhwc_like(ours[2]), theirs[2]
+    assert a["rot_angle"] == 0 and a["is_flipped"] == 0 and a["scale"] == np.float32(ours.scale[2])
+    for k, v in b.items():
+        if not isinstance(v, str):
+            np.testing.assert_array_equal(a[k], v, err_msg=k)
+
+
+U8_KEYS = ("img", "ir_img", "depth_img", "pm_img", "ir_img_uncover", "depth_img_uncover", "pm_img_uncover",
+           "mask_uncover")
+
+
+def test_decode_uint8_batch_matches_jax():
+    rng = np.random.default_rng(9)
+    batch = {k: rng.integers(0, 256, (3, 3 if k == "img" else 1, 16, 16), dtype=np.uint8) for k in U8_KEYS}
+    batch["pixel_noise"] = rng.uniform(0.6, 1.4, (3, 3)).astype(np.float32)
+    batch["keypoints"] = rng.normal(0, 1, (3, 49, 3)).astype(np.float32)
+    want = j_decode_uint8_batch({k: jnp.asarray(np.moveaxis(v, 1, 3) if k in U8_KEYS else v)
+                                 for k, v in batch.items()})
+    got = decode_uint8_batch({k: torch.from_numpy(v) for k, v in batch.items()})
+    assert set(got) == set(want)
+    for k in U8_KEYS:
+        assert got[k].dtype == torch.float32
+        np.testing.assert_array_equal(np.moveaxis(got[k].numpy(), 1, 3), np.asarray(want[k]), err_msg=k)
+    assert got["keypoints"] is not None and torch.equal(got["keypoints"], torch.from_numpy(batch["keypoints"]))
+    floats = {"img": torch.zeros(1, 3, 4, 4)}
+    assert decode_uint8_batch(floats) is floats  # the float feed passes through
+
+
+def test_uint8_feed_decodes_to_the_float_feed(tree):
+    """The contract of tests/test_data.py::test_uint8_feed_bit_identical_to_host_path
+    for the port: the uint8 item decoded on the device equals the float
+    item to one float32 ulp (the host multiplies the noise in float64), and
+    every other key is equal."""
+    seed = AUG_SEEDS["flip_rot"]
+    a = BaseDataset(_TrainOpt(False), "slp-4mod-train", is_train=True).__getitem__(0, rng=np.random.default_rng(seed))
+    b = BaseDataset(_TrainOpt(True), "slp-4mod-train", is_train=True).__getitem__(0, rng=np.random.default_rng(seed))
+    decoded = decode_uint8_batch({k: torch.from_numpy(np.asarray(v))[None] for k, v in b.items()
+                                  if k in U8_KEYS or k == "pixel_noise"})
+    for k in U8_KEYS:
+        assert b[k].dtype == np.uint8, k
+        np.testing.assert_allclose(decoded[k][0].numpy(), a[k], rtol=3e-7, atol=1e-6, err_msg=k)
+    for k in set(a) - set(U8_KEYS):
+        if not isinstance(a[k], str):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_mixed_dataset_matches_jax(tree):
+    """Partition, length, fits layout and global sample indices of a
+    two-source mixture, and its items (augmentation off) bitwise."""
+    class Opt(_TrainOpt):
+        data_train = "slp-4mod-train:0.3+slp-multi:0.7"
+
+    ours = MixedDataset(Opt(False), is_train=True, use_augmentation=False)
+    theirs = JMixedDataset(Opt(False), is_train=True, use_augmentation=False)
+    assert ours.partition == theirs.partition == [("slp-4mod-train", 0.3), ("slp-multi", 0.7)]
+    assert len(ours) == len(theirs) == 6
+    assert ours.fits_layout == theirs.fits_layout == [("slp-4mod-train", 6), ("slp-multi", 4)]
+    np.testing.assert_array_equal(ours.fits_offsets, theirs.fits_offsets)
+    indices = []
+    for i in range(len(ours)):
+        a, b = _nhwc_like(ours[i]), theirs[i]
+        indices.append(a["sample_index"])
+        assert a["sample_index"] == b["sample_index"] and a["dataset_name"] == b["dataset_name"]
+        np.testing.assert_array_equal(a["img"], b["img"])
+    assert indices == [0, 1, 8, 9, 6, 7]  # index / 6 < 0.3: source 0; else source 1 from row 6, index % 4
+    single = MixedDataset(_TrainOpt(False), is_train=True)
+    assert single.partition == [("slp-4mod-train", 1.0)] and single.fits_layout == [("slp-4mod-train", 6)]
 
 
 # (image shape, center, scale, res): inside, crossing the top-left edge,
@@ -131,6 +270,26 @@ def test_crop_and_uncrop_match_jax_bitwise(shape, center, scale, res):
     mask = (np.random.default_rng(1).uniform(size=res) > 0.5).astype(np.uint8)
     np.testing.assert_array_equal(tf.uncrop(mask, center, scale, shape[:2]),
                                   j_tf.uncrop(mask, center, scale, shape[:2]))
+
+
+# Rotated crops: a box crossing the top-left edge of the frame and one
+# crossing the bottom-right edge; the frame RGB or gray, uint8 or float.
+ROT_BOXES = {"top_left": ((10, 5), 0.5, (64, 64)), "bottom_right": ((150, 110), 0.35, (32, 48))}
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("channels", [3, 1], ids=["rgb", "gray"])
+@pytest.mark.parametrize("box", sorted(ROT_BOXES))
+@pytest.mark.parametrize("rot", [-30.0, -7.5, 12.0, 30.0])
+def test_rotated_crop_matches_jax_bitwise(rot, box, channels, dtype):
+    shape = (120, 160, 3) if channels == 3 else (120, 160)
+    img = np.random.default_rng(channels).uniform(0, 255, shape).astype(dtype)
+    center, scale, res = ROT_BOXES[box]
+    got = tf.crop(img, center, scale, res, rot=rot)
+    assert got.dtype == np.uint8 and got.shape[:2] == res
+    np.testing.assert_array_equal(got, j_tf.crop(img, center, scale, res, rot=rot))
+    np.testing.assert_array_equal(tf._imrotate_uint8(img, rot), j_tf._imrotate_uint8(img, rot))
+    assert not np.array_equal(got, tf.crop(img, center, scale, res))
 
 
 def test_loader_matches_jax():

@@ -33,7 +33,8 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "eval_gpu.py"],
+@pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py")) + [REPO / n for n in ("chip_smoke.py", "eval_gpu.py",
+                                                                                       "train_gpu.py")],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
@@ -58,8 +59,8 @@ def test_resolve_device_raises_without_cuda_and_pins_f32(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["build_model", "synthetic_smpl_model", "make_inference_fn", "synthetic_gmm_prior",
                                    "make_train_step", "init_train_state", "run_evaluation", "make_device_preprocess",
-                                   "PartRenderer", "eval_gpu.main"])
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
+                                   "PartRenderer", "eval_gpu.main", "train_gpu.main", "Trainer"])
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, entry):
     _cuda_missing(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "run_evaluation":
@@ -73,6 +74,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
             import eval_gpu
 
             eval_gpu.main(["--model", "hmr", "--allow_synthetic_assets"])
+        elif entry == "train_gpu.main":
+            import train_gpu
+
+            train_gpu.main(["--name", "x", "--log_dir", str(tmp_path), "--model", "hmr", "--allow_synthetic_assets"])
+        elif entry == "Trainer":
+            from inbed_pose_estimation_tpu_torch.train import Trainer, parse_args
+
+            model, spec = build_model("hmr", device="cpu")
+            Trainer(parse_args(["--name", "x", "--log_dir", str(tmp_path)]), model, spec,
+                    synthetic_smpl_model(0, device="cpu"), synthetic_gmm_prior(device="cpu"), [None] * 4)
         elif entry == "build_model":
             build_model("hmr")
         elif entry == "synthetic_smpl_model":
@@ -84,7 +95,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
             make_inference_fn(model, spec, synthetic_smpl_model(0, device="cpu"), np.zeros((17, 6890), np.float32))
         else:
             model, spec = build_model("hmr", device="cpu")
-            options = build_parser().parse_args([])
+            options = build_parser().parse_args(["--name", "x"])
             if entry == "make_train_step":
                 make_train_step(model, spec, synthetic_smpl_model(0, device="cpu"), synthetic_gmm_prior(device="cpu"),
                                 options)

@@ -23,7 +23,9 @@ from inbed_pose_estimation_tpu.train.trainer import TrainState as JTrainState
 from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.models.backbone import BatchNorm2d
 from inbed_pose_estimation_tpu_torch.models.heads import dropout
-from inbed_pose_estimation_tpu_torch.train import FitsStore, build_parser, fits_get, fits_set, train_state_from_jax
+from inbed_pose_estimation_tpu_torch.train import (
+    FitsStore, build_parser, fits_get, fits_set, parse_args, train_state_from_jax,
+)
 from inbed_pose_estimation_tpu_torch.train import losses as tL
 from inbed_pose_estimation_tpu_torch.weights import flax_path, load_jax_adam_state, load_jax_variables
 
@@ -150,20 +152,23 @@ STEP_OPTIONS = {"lr", "img_res", "num_cas_iters", "run_smplify", "num_smplify_it
 
 
 def test_options_match_jax():
-    """Every option the step reads, with the JAX parser's name and default,
-    and the same value when set."""
-    port = vars(build_parser().parse_args([]))
+    """Every option of the JAX parser, with its name and default, and the
+    same value when set; the port adds only --device."""
+    port = vars(build_parser().parse_args(["--name", "x"]))
     ref = vars(j_build_parser().parse_args(["--name", "x"]))
-    assert STEP_OPTIONS <= set(port) and port == {k: ref[k] for k in port}
-    args = ["--lr", "1e-4", "--img_res", "64", "--num_smplify_iters", "3", "--run_smplify", "--batch_size", "2"]
-    assert vars(build_parser().parse_args(args)) == {
-        k: v for k, v in vars(j_build_parser().parse_args(["--name", "x"] + args)).items() if k in port}
+    assert STEP_OPTIONS <= set(port) and set(port) == set(ref) | {"device"} and port["device"] == "cuda"
+    assert {k: v for k, v in port.items() if k != "device"} == ref
+    args = ["--lr", "1e-4", "--img_res", "64", "--num_smplify_iters", "3", "--run_smplify", "--batch_size", "2",
+            "--no-uint8_feed", "--no_shuffle_train", "--num_epochs", "3"]
+    assert {k: v for k, v in vars(build_parser().parse_args(["--name", "x"] + args)).items() if k != "device"} == \
+        vars(j_build_parser().parse_args(["--name", "x"] + args))
 
 
-@pytest.mark.parametrize("arg", ["--dtype=bfloat16", "--remat", "--no-uint8_feed", "--fast_preprocess"])
-def test_options_reject_what_the_port_does_not_implement(arg):
-    with pytest.raises(SystemExit):
-        build_parser().parse_args([arg])
+@pytest.mark.parametrize("arg", ["--dtype=bfloat16", "--remat", "--crop_cache=x", "--fast_preprocess"])
+def test_options_reject_what_the_port_does_not_implement(arg, tmp_path):
+    with pytest.raises(SystemExit, match="is not ported yet: ROADMAP"):
+        parse_args(["--name", "x", "--log_dir", str(tmp_path), arg])
+    assert not (tmp_path / "x").exists()
 
 
 def test_batchnorm_running_var_is_biased():
