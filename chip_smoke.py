@@ -40,11 +40,12 @@ Phases, in order; any failure exits non-zero before the last line:
      memory, the card's busy share of one split (torch.profiler); K3 and K5 on the card against the CPU; and the CLI on the card
      against the CPU at RES 64 over 2-sample splits;
   7. train driver: a synthetic SLP tree at SLP's frame size with a train
-     split of 256 samples, then the train CLI `train_gpu.main` at its
+     split of 384 samples, then the train CLI `train_gpu.main` at its
      defaults (cashmrV2, batch 64, 224x224, float32, 2-pass cascade, 8
      loader threads, uint8 feed, shuffle and augmentation on) with
-     --run_smplify (100 Adam steps a stage) for one epoch of 4 steps (1
-     warm-up, 3 timed) and the epoch-end checkpoint and eval on
+     --run_smplify (100 Adam steps a stage) for one epoch of 6 steps (1
+     warm-up, 5 timed, each step's phases kept) and the epoch-end checkpoint
+     and eval on
      slp-4mod-uncover: 206 skinning launches a step, images/s, ms a step,
      the loader wait and its share, the step alone on a loaded batch,
      checkpoint seconds and size, eval seconds, peak memory; then the run
@@ -112,9 +113,10 @@ K3_CARD_VS_CPU_MAX_PIXELS = 0
 
 # Phase 7: the train CLI at its defaults with SMPLify on over a synthetic SLP
 # tree at SLP's frame size whose train split (uncover + cover1) holds
-# 2 * TRAIN_SAMPLES = 256 samples: one epoch is 4 steps at batch 64; the eval
-# split slp-4mod-uncover holds TRAIN_SAMPLES.
-TRAIN_SAMPLES, TRAIN_DRIVER_STEPS = 128, 4
+# 2 * TRAIN_SAMPLES = 384 samples: one epoch is 6 steps at batch 64, the
+# loader busy prefetching during the first four and idle in the last two;
+# the eval split slp-4mod-uncover holds TRAIN_SAMPLES.
+TRAIN_SAMPLES, TRAIN_DRIVER_STEPS = 192, 6
 TRAIN_DRIVER_ARGS = ["--name", "chip_smoke", "--run_smplify", "--num_epochs", "1", "--summary_steps", "1",
                      "--data_test", "slp-4mod-uncover", "--allow_synthetic_assets"]
 
@@ -658,8 +660,9 @@ def train_driver_phase(torch, np, dev, smi):
 
             # The step alone on a loaded batch, no loader running beside it:
             # the driver's step against phase 5's.
-            batch = next(iter(CheckpointDataLoader(trainer.train_ds, batch_size=B, num_workers=opts.num_workers,
-                                                   seed=0)))[1]
+            batches = iter(CheckpointDataLoader(trainer.train_ds, batch_size=B, num_workers=opts.num_workers, seed=0))
+            batch = next(batches)[1]
+            batches.close()  # stops the loader before the timing
             feed = {k: v for k, v in batch.items() if k in trainer.feed_keys}
             state = trainer.train_step(trainer.state, feed)[0]
             torch.cuda.synchronize()

@@ -123,7 +123,10 @@ def decode_uint8_batch(batch: dict) -> dict:
         if x is None or x.dtype != torch.uint8:
             continue
         n = pn[:, :3] if x.shape[1] == 3 else pn[:, :1]
-        xf = torch.clamp(x.to(torch.float32) * n[:, :, None, None], 0.0, 255.0) / 255.0
+        # A tensor divisor: CUDA divides by a Python number as a product with
+        # its reciprocal, one rounding off the host's division.
+        xf = torch.clamp(x.to(torch.float32) * n[:, :, None, None], 0.0, 255.0) / constant(
+            (255.0,), torch.float32, x.device)
         if stats is not None:
             mean, std = (constant(tuple(v), torch.float32, x.device).view(-1, 1, 1) for v in stats)
             xf = (xf - mean) / std

@@ -99,8 +99,11 @@ class CheckpointDataLoader:
                     raise batch
                 yield b, batch
         finally:
-            # Left early (a time-boxed exit): stop the producer, and empty
-            # the queue so that a put it is blocked in returns.
+            # Left early (a time-boxed exit, or an iterator dropped): stop
+            # the producer, empty the queue so that a put it is blocked in
+            # returns, and wait for the batch it is loading, so that no read
+            # outlives the iteration.
             stop.set()
             while not q.empty():
                 q.get_nowait()
+            t.join()

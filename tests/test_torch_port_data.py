@@ -308,6 +308,30 @@ def test_loader_matches_jax():
     assert collate(data[:2])["x"].shape == (2, 2)
 
 
+def test_loader_left_early_stops_its_producer():
+    """An iterator closed after its first batch stops the producer: no
+    sample is read after close() returns."""
+    import time
+
+    reads = []
+
+    class Slow:
+        def __len__(self):
+            return 40
+
+        def __getitem__(self, i):
+            time.sleep(0.01)
+            reads.append(i)
+            return {"x": np.zeros(1)}
+
+    it = iter(CheckpointDataLoader(Slow(), batch_size=4, num_workers=2, shuffle=False))
+    assert next(it)[0] == 0
+    it.close()
+    n = len(reads)
+    time.sleep(0.2)
+    assert len(reads) == n < 40
+
+
 # Boxes for the device crop on a 120 x 160 frame: inside, and crossing the
 # top-left edge (ul truncates toward zero, not down).
 K5_BOXES = {"inside": ([80.0, 60.0], 0.5), "top_left": ([15.0, 8.0], 0.45), "shrink": ([80.0, 60.0], 0.9)}
