@@ -52,7 +52,21 @@ Phases, in order; any failure exits non-zero before the last line:
      resumed in-process from its `.pt` (epoch, step, permutation, Adam's
      moments, the dropout generator and the fits as saved) and one more
      step from there.  Its checkpoints go to a temporary directory that is
-     deleted.
+     deleted;
+  8. families: the multi-trunk and fusion models at full width (224x224,
+     float32, seeded random weights): eval inference of featatt_cashmr,
+     ir_depth_featatt_cashmrV2, ir_depth_fusion and ir_depth_pm_fusion at
+     batch 32 (the skinning launches of one call, including the fusion
+     models' in-model body masks, images/s, peak memory), featatt_cashmr and
+     ir_depth_pm_fusion on the card against the CPU at RES 64, the body mask
+     (K2) on the card against the CPU and its time, and the train step with
+     SMPLify (100 Adam steps a stage) of featatt_cashmr, ir_depth_fusion and
+     ir_depth_pm_fusion (launches a step, ms a step, peak memory, the frozen
+     guide unchanged); inside phases 6 and 7, on their trees, the eval CLI
+     for featatt_cashmr and for ir_depth_pm_fusion with a guide checkpoint
+     the phase writes (--pretrained_fusion_checkpoint), and one train CLI
+     step of ir_depth_pm_fusion with that guide (its launches, the guide
+     bitwise unchanged).
 Then the kernel table as one JSON line, the nvidia-smi line, and
 {"ok": true, "device": ...} as the last line.
 """
@@ -120,6 +134,29 @@ TRAIN_SAMPLES, TRAIN_DRIVER_STEPS = 192, 6
 TRAIN_DRIVER_ARGS = ["--name", "chip_smoke", "--run_smplify", "--num_epochs", "1", "--summary_steps", "1",
                      "--data_test", "slp-4mod-uncover", "--allow_synthetic_assets"]
 
+# Phase 8: the multi-trunk and fusion families.  Eval inference at batch 32
+# and the skinning launches of one call: the LBS after the network, plus one
+# per TwoStageFusion for its body mask (the frozen pipelines run two: the
+# guide's and the main stage's).
+FAMILY_EVAL_LAUNCHES = {"featatt_cashmr": 1, "ir_depth_featatt_cashmrV2": 1, "ir_depth_fusion": 2,
+                        "ir_depth_pm_fusion": 3}
+# The train step at the train CLI's defaults with SMPLify (N = 100): (batch,
+# skinning launches a step).  A 2-pass cascade runs 6 + 2N, a fusion model
+# one more for its mask, a frozen pipeline two more.  featatt_cashmr's four
+# trunks over two passes fit at batch 64 (peak 68.3 GiB allocated, 77.0 GiB
+# reserved, of the 80 GB; PERF.md section 5), so nothing is cut.
+FAMILY_TRAIN = {"featatt_cashmr": (64, 206), "ir_depth_fusion": (64, 207), "ir_depth_pm_fusion": (64, 208)}
+# The same weights on the card and on the CPU at RES 64, batch 2: the
+# largest absolute differences, and the body-mask pixels that may differ.
+# The card read rotmat 1.2e-7, betas 1.9e-9, cam 3.7e-9, keypoints 2.4e-7
+# (PERF.md section 6): each limit is 3-5x the reading, or float32's rounding
+# at the values' scale where that is larger; the same inference with TF32
+# on must break at least one.
+FAMILY_CARD_VS_CPU_LIMITS = {"rotmat": 5e-7, "betas": 3e-8, "cam": 3e-8, "keypoints_3d_17": 1e-6}
+FAMILY_CARD_VS_CPU_MASK_PIXELS = 0
+# The guide of the frozen pipelines in the CLI runs: a seeded ir_depth_fusion.
+GUIDE_SEED = 3
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -136,8 +173,10 @@ def log(phase: str, **fields) -> None:
 
 
 def train_batch(np, spec, batch_size, res, rows, seed):
-    """A synthetic batch with the keys one train step reads (NCHW images)."""
+    """A synthetic batch with the keys one train step of `spec` reads (NCHW
+    images; a fusion model's ground-truth body mask in {0, 1})."""
     from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
+    from inbed_pose_estimation_tpu_torch.train import step_feed_keys
 
     r = np.random.default_rng(seed)
     B = batch_size
@@ -154,7 +193,11 @@ def train_batch(np, spec, batch_size, res, rows, seed):
         "rot_angle": r.uniform(-30, 30, B),
         "sample_index": r.choice(rows, B, replace=False),
     })
-    return {k: np.asarray(v, np.int64 if k == "sample_index" else np.float32) for k, v in batch.items()}
+    keys = step_feed_keys(spec) - {"pixel_noise"}
+    for k in sorted(keys - set(batch)):
+        image = r.normal(0, 1, (B, 1, res, res))
+        batch[k] = image > 0 if k == "mask_uncover" else image
+    return {k: np.asarray(v, np.int64 if k == "sample_index" else np.float32) for k, v in batch.items() if k in keys}
 
 
 def small_step(torch, np, device, dtype, feed_map, state_dict, tf32=False):
@@ -420,8 +463,9 @@ def _point_env_at(env: dict) -> None:
 
 
 def eval_driver_phase(torch, np, dev, smi, cuda_ms):
-    """Phase 6; returns the skinning launches of the driver's run and its
-    batch count."""
+    """Phase 6 (and phase 8's eval CLI runs on its tree); returns the
+    skinning launches of the driver's run, its batch count, and the launches
+    of phase 8's runs by model."""
     import tempfile
     import types
 
@@ -504,6 +548,9 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
                              "rotmat": [n, 24, 3, 3]}, f"results npz schema {shapes}")
             check(all(np.isfinite(fits[k]).all() for k in fits.files), "results npz: non-finite values")
 
+            # Phase 8's eval CLI runs on this tree.
+            family_launches = families_eval_driver(torch, np, dev, smi, base)
+
             # The driver's parts at B=32, 224^2, on the first batch of a split.
             # The host time of one batch on the loader's 8 threads, and of
             # one sample on one thread, with the host crop and raw frames.
@@ -583,12 +630,13 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    return launches, batches
+    return launches, batches, family_launches
 
 
 def train_driver_phase(torch, np, dev, smi):
-    """Phase 7; returns the skinning launches of one driver step and of the
-    driver's whole run, and its steps."""
+    """Phase 7 (and phase 8's train CLI step on its tree); returns the
+    skinning launches of one driver step and of the driver's whole run, its
+    steps, and the launches of phase 8's fusion step."""
     import tempfile
 
     import train_gpu
@@ -717,13 +765,259 @@ def train_driver_phase(torch, np, dev, smi):
                 launches={"skinning": sk.launches}, loss=more[0]["metrics"]["loss"], card=smi)
             del resumed, rs, params
             torch.cuda.empty_cache()
+
+            # Phase 8's train CLI step on this tree.
+            family_launches = families_train_driver(torch, np, dev, smi, base)
         finally:
             for k, v in saved_env.items():
                 if v is None:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    return per_step, launches, steps
+    return per_step, launches, steps, family_launches
+
+
+def write_guide(torch, path: str) -> dict:
+    """A seeded ir_depth_fusion's weights as a `.pt` in the reference layout
+    at `path`, for --pretrained_fusion_checkpoint; returns them (CPU)."""
+    from inbed_pose_estimation_tpu_torch.models import build_model
+
+    torch.manual_seed(GUIDE_SEED)
+    donor, _ = build_model("ir_depth_fusion", device="cpu")
+    state = donor.state_dict()
+    torch.save({"model": state}, path)
+    return state
+
+
+def guide_unchanged(torch, model, want: dict) -> bool:
+    """Is the frozen guide of `model` bitwise `want`?"""
+    return all(torch.equal(v.cpu(), want[k]) for k, v in model.guide.state_dict().items())
+
+
+def families_eval_driver(torch, np, dev, smi, base):
+    """Phase 8 on phase 6's tree: the eval CLI for featatt_cashmr and for
+    ir_depth_pm_fusion with a guide checkpoint, one split each; returns
+    their skinning launches."""
+    import eval_gpu
+
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+
+    guide = f"{base}/guide.pt"
+    write_guide(torch, guide)
+    split, batches = "slp-4mod-uncover", -(-EVAL_SAMPLES // BATCH)
+    launches = {}
+    for name, extra in (("featatt_cashmr", []), ("ir_depth_pm_fusion", ["--pretrained_fusion_checkpoint", guide])):
+        args = ["--model", name, "--allow_synthetic_assets", "--dataset", split, *extra, "--device", dev.type]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.launches = 0
+        r = eval_gpu.main(args)[split]
+        torch.cuda.synchronize()
+        launches[name] = sk.launches
+        expected = FAMILY_EVAL_LAUNCHES[name] * batches
+        log("families_eval_driver", args=args, launches={"skinning": sk.launches}, expected=expected,
+            batches=batches, images_per_s=r["timing"]["images_per_s"], seconds=r["timing"]["seconds"],
+            loader_wait_s=r["timing"]["loader_wait_s"], peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            mpjpe=r["mpjpe"], pa_mpjpe=r["pa_mpjpe"], mask_f1=r["mask_f1"], card=smi)
+        check(sk.launches == expected, f"eval_gpu --model {name}: {sk.launches} skinning launches, expected {expected}")
+        check(r["timing"]["images"] == EVAL_SAMPLES and np.isfinite(r["mpjpe"]) and r["pa_mpjpe"] <= r["mpjpe"],
+              f"eval_gpu --model {name}: metrics {r['mpjpe']} / {r['pa_mpjpe']}")
+    return launches
+
+
+def families_train_driver(torch, np, dev, smi, base):
+    """Phase 8 on phase 7's tree: one train CLI step of ir_depth_pm_fusion
+    with SMPLify and a guide checkpoint; returns its skinning launches."""
+    import train_gpu
+
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+
+    guide = f"{base}/guide.pt"
+    want = write_guide(torch, guide)
+    name, (_, expected) = "ir_depth_pm_fusion", FAMILY_TRAIN["ir_depth_pm_fusion"]
+    args = TRAIN_DRIVER_ARGS + ["--log_dir", f"{base}/fusion_logs", "--model", name, "--pretrained_fusion_checkpoint",
+                                guide, "--time_to_run", "0", "--device", dev.type]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_gpu.main(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = sk.launches
+    summary = [h for h in trainer.history if h["kind"] == "summary"]
+    saves = [h for h in trainer.history if h["kind"] == "save"]
+    log("families_train_driver", args=args, steps=trainer.step_count, launches={"skinning": launches},
+        expected=expected, step_ms=summary[0]["wall_ms_per_step"] if summary else None,
+        loader_wait_ms=summary[0]["phases_ms"]["data"] if summary else None, run_s=run_s,
+        checkpoint_gb=saves[0]["bytes"] / 1e9 if saves else None,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=smi)
+    check(trainer.step_count == 1 and len(summary) == 1 and len(saves) == 1,
+          f"train_gpu --model {name}: {trainer.step_count} steps, {len(saves)} saves")
+    check(launches == expected, f"train_gpu --model {name}: {launches} skinning launches, expected {expected}")
+    check(all(np.isfinite(v) for v in summary[0]["metrics"].values()), f"train_gpu --model {name}: metrics")
+    check(guide_unchanged(torch, trainer.state.model, want), f"train_gpu --model {name}: the guide changed")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_phase(torch, np, dev, smi, smpl, cuda_ms):
+    """Phase 8 on synthetic inputs; returns the skinning launches of one eval
+    call and of one train step per model."""
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn
+    from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
+    from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+    from inbed_pose_estimation_tpu_torch.ops.mask_raster import render_body_mask
+    from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
+    from inbed_pose_estimation_tpu_torch.train import FitsStore, build_parser, init_train_state, make_train_step
+
+    V = smpl.v_template.shape[0]
+    jreg = load_j_regressor_h36m(num_vertices=V)
+    rng = np.random.default_rng(SEED)
+    eval_launches, train_launches = {}, {}
+
+    # Eval inference at batch 32, 224^2.
+    for name, expected in FAMILY_EVAL_LAUNCHES.items():
+        torch.manual_seed(SEED)
+        model, spec = build_model(name, device=dev)
+        infer = make_inference_fn(model, spec, smpl, jreg, num_cas_iters=NUM_CAS_ITERS, final_recon=False, device=dev)
+        inputs = tuple(torch.from_numpy(rng.normal(0, 1, (BATCH, MODALITY_CHANNELS[m], RES, RES)).astype(np.float32))
+                       .to(dev) for m in spec.modalities)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.launches = 0
+        out = infer(inputs)
+        torch.cuda.synchronize()
+        eval_launches[name] = sk.launches
+        check(sk.launches == expected, f"{name}: skinning launched {sk.launches} times in one eval call, "
+                                       f"expected {expected}")
+        check(tuple(out["vertices"].shape) == (BATCH, V, 3) and tuple(out["keypoints_3d_17"].shape) == (BATCH, 17, 3),
+              f"{name}: output shapes")
+        for key in ("rotmat", "betas", "cam", "vertices", "keypoints_3d_17"):
+            check(bool(torch.isfinite(out[key]).all()), f"{name}: {key} has non-finite values")
+        mask = out["recon"].get("mask")
+        if mask is not None:
+            check(bool(((mask >= 0) & (mask <= 1)).all()) and 0 < float(mask.mean()) < 1,
+                  f"{name}: the body mask is {float(mask.mean())} on average")
+        for _ in range(3):
+            infer(inputs)
+        torch.cuda.synchronize()
+        before = sk.launches
+        t0 = time.perf_counter()
+        for _ in range(TIMED_CALLS):
+            infer(inputs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(sk.launches - before == expected * TIMED_CALLS, f"{name}: launches in the timed loop")
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            infer(inputs)
+        log("families_eval", model=name, batch=BATCH, res=RES, launches={"skinning": eval_launches[name]},
+            expected=expected, images_per_s=BATCH * TIMED_CALLS / seconds, ms_per_batch=1e3 * seconds / TIMED_CALLS,
+            calls=TIMED_CALLS, tflop_per_batch=counter.get_total_flops() / 1e12,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=smi)
+
+        if name == "ir_depth_fusion":
+            # K2 on this batch's meshes: its time at batch 32, 224^2, and the
+            # card against the CPU on the same vertices.
+            verts, cam = out["vertices"], out["cam"]
+            k2_ms = cuda_ms(lambda: render_body_mask(verts, cam), 20)
+            card = render_body_mask(verts, cam).cpu()
+            cpu = render_body_mask(verts.cpu(), cam.cpu())
+            k2_diff = int((card != cpu).sum())
+            log("families_mask_raster", batch=BATCH, res=RES, vertices=V, ms_per_batch=k2_ms,
+                card_vs_cpu_differing_pixels=k2_diff, pixels=int(cpu.numel()), body_share=float(cpu.mean()),
+                card=smi)
+            check(k2_diff == 0, f"K2: {k2_diff} mask pixels differ between the card and the CPU")
+        del model, infer, inputs, out
+        torch.cuda.empty_cache()
+
+    # The same weights on the card and on the CPU at RES 64, batch 2.
+    cpu_smpl = synthetic_smpl_model(SEED, device="cpu")
+    for name in ("featatt_cashmr", "ir_depth_pm_fusion"):
+        torch.manual_seed(SEED + 4)
+        cpu_model, spec = build_model(name, device="cpu")
+        model, _ = build_model(name, device=dev)
+        model.load_state_dict(cpu_model.state_dict())
+        small = [rng.normal(0, 1, (2, MODALITY_CHANNELS[m], 64, 64)).astype(np.float32) for m in spec.modalities]
+        infer = make_inference_fn(model, spec, smpl, jreg, final_recon=False, device=dev)
+        want = make_inference_fn(cpu_model, spec, cpu_smpl, jreg, final_recon=False, device="cpu")(small)
+
+        def readings(got):
+            errs = {k: (got[k].cpu() - want[k]).abs().max().item() for k in FAMILY_CARD_VS_CPU_LIMITS}
+            errs["mask_pixels"] = int((got["recon"]["mask"].cpu() != want["recon"]["mask"]).sum()) \
+                if "mask" in want["recon"] else 0
+            return errs
+
+        errs = readings(infer(small))
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        tf32 = readings(infer(small))
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        limits = dict(FAMILY_CARD_VS_CPU_LIMITS, mask_pixels=FAMILY_CARD_VS_CPU_MASK_PIXELS)
+        log("families_card_vs_cpu", model=name, res=64, batch=2, max_abs_err=errs, limits=limits,
+            tf32_control=tf32)
+        for k, v in errs.items():
+            check(v <= limits[k], f"{name} card vs CPU: {k} reads {v:.3g}, limit {limits[k]:.3g}")
+        check(any(v > limits[k] for k, v in tf32.items()),
+              f"{name} card vs CPU: the TF32 control meets every limit, so they cannot tell TF32 from float32")
+        del model, cpu_model, infer
+
+    # The train step with SMPLify at the train CLI's defaults.  featatt_cashmr
+    # needs 65-68 GiB of the card's 80 at batch 64: start from an empty cache.
+    gc.collect()
+    torch.cuda.empty_cache()
+    options = build_parser().parse_args(TRAIN_ARGS)
+    N = options.num_smplify_iters
+    prior = synthetic_gmm_prior(device=dev)
+    for name, (B, expected) in FAMILY_TRAIN.items():
+        options.batch_size = B
+        torch.manual_seed(SEED + 1)
+        model, spec = build_model(name, device=dev)
+        store = FitsStore("synthetic", FITS_ROWS, device=dev)
+        state = init_train_state(model, options, store.array, seed=SEED, device=dev)
+        step = make_train_step(model, spec, smpl, prior, options, device=dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(np, spec, B, RES, FITS_ROWS, SEED).items()}
+        guide0 = {k: v.cpu().clone() for k, v in model.guide.state_dict().items()} if hasattr(model, "guide") else None
+        params0 = [p.detach().clone() for p in state.optimizer.param_groups[0]["params"]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        train_launches[name] = sk.launches
+        check(sk.launches == expected, f"{name}: skinning launched {sk.launches} times in one train step, "
+                                       f"expected {expected} (N = {N})")
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"{name} train step: a non-finite metric")
+        moved = sum(int(not torch.equal(a, p)) for a, p in zip(params0, state.optimizer.param_groups[0]["params"]))
+        del params0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 2
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"{name} timed train steps: a non-finite metric")
+        if guide0 is not None:
+            check(guide_unchanged(torch, model, guide0), f"{name}: the frozen guide changed in training")
+        log("families_train_step", model=name, batch=B, res=RES, num_smplify_iters=N,
+            launches={"skinning": train_launches[name]}, expected=expected, first_step_s=first_s, ms_per_step=ms,
+            images_per_s=1e3 * B / ms, params_moved=moved,
+            trained_params=len(state.optimizer.param_groups[0]["params"]),
+            guide_unchanged=guide0 is not None, metrics={k: v.item() for k, v in metrics.items()},
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30, card=smi)
+        del model, state, step, batch, metrics
+        torch.cuda.empty_cache()
+    return eval_launches, train_launches
 
 
 def main() -> int:
@@ -881,23 +1175,39 @@ def main() -> int:
     log("skinning_yardsticks", batch=BATCH, v_posed_copy_ms=copy_ms, affine_pack_ms=pack_ms,
         blend_registers_only_ms=blend_ms, card=smi)
 
-    # Device time of one wrapper call (one kernel launch) and of the plain
-    # version, each back to back with its inputs in L2, as on the main path
-    # where v_posed was just written; then the same calls issued eagerly
-    # from Python, one event pair over 200; then the kernel's time for each
-    # batch chunk, beside the chunk the wrapper picks.
+    # Device time of one wrapper call (one kernel launch), of the plain
+    # version and of the one PyTorch call that computes the same function
+    # (torch.einsum over the packed affines [A_rot | A_t] and homogeneous
+    # vertices, packed beforehand), each back to back with its inputs in L2,
+    # as on the main path where v_posed was just written; then the same
+    # calls issued eagerly from Python, one event pair over 200; then the
+    # kernel's time for each batch chunk, beside the chunk the wrapper picks.
+    def library_args(args):
+        verts, weights, rot, t = args
+        affine = torch.cat([rot, t[..., None]], dim=-1)  # [b, 24, 3, 4]
+        return weights, affine, torch.cat([verts, torch.ones_like(verts[..., :1])], dim=-1)
+
+    def library(weights, affine, homo):
+        return torch.einsum("vj,bjrc,bvc->bvr", weights, affine, homo)
+
+    library_err = {}
     timing = {}
     for b, args in ((BATCH, main_args), (64, b64_args)):
         nbytes, flops, bound_ms, bound_by = bound(b)
+        lib = library_args(args)
+        library_err[b] = (library(*lib) - sk.skinning_reference(*args)).abs().max().item()
+        check(library_err[b] <= 1e-5, f"the einsum skinning disagrees with skinning_reference at B={b}")
         timing[b] = {
             "ms": graph_ms(lambda: sk.skinning_forward(*args)),
             "plain_ms": graph_ms(lambda: sk.skinning_reference(*args)),
+            "library_ms": graph_ms(lambda: library(*lib)),
             "eager_ms": cuda_ms(lambda: sk.skinning_forward(*args), 200),
             "plain_eager_ms": cuda_ms(lambda: sk.skinning_reference(*args), 200),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         by_chunk = {c: graph_ms(lambda: sk._launch(*args, chunk=c)) for c in (1, 2, 4)}
-        log("skinning_time", batch=b, vertices=V, **timing[b], bytes=nbytes, flops=flops,
+        log("skinning_time", batch=b, vertices=V, **timing[b], library_max_abs_err=library_err[b], bytes=nbytes,
+            flops=flops,
             share_of_bound=bound_ms / timing[b]["ms"], single_node_floor_ms=floor_ms,
             chunk=sk.batch_chunk(b, V), ms_by_chunk=by_chunk, card=smi)
 
@@ -985,11 +1295,16 @@ def main() -> int:
     # 5. train step
     launches_train_step = train_phase(torch, np, dev, smi, smpl, cuda_ms)
 
-    # 6. eval driver
-    launches_eval_driver, eval_driver_batches = eval_driver_phase(torch, np, dev, smi, cuda_ms)
+    # 6. eval driver (with phase 8's eval CLI runs on its tree)
+    launches_eval_driver, eval_driver_batches, launches_families_eval_driver = eval_driver_phase(
+        torch, np, dev, smi, cuda_ms)
 
-    # 7. train driver
-    launches_train_driver_step, launches_train_driver, train_driver_steps = train_driver_phase(torch, np, dev, smi)
+    # 7. train driver (with phase 8's train CLI step on its tree)
+    launches_train_driver_step, launches_train_driver, train_driver_steps, launches_families_train_driver = (
+        train_driver_phase(torch, np, dev, smi))
+
+    # 8. families
+    launches_families_eval, launches_families_train_step = families_phase(torch, np, dev, smi, smpl, cuda_ms)
 
     kernels = [{
         "name": "skinning", "route": "cuda",
@@ -997,7 +1312,8 @@ def main() -> int:
         "replaces": "inbed_pose_estimation_tpu/ops/pallas_lbs.py:31",
         "launches": counts["skinning"], "max_abs_err": err_main,
         "ms": timing[BATCH]["ms"], "plain_ms": timing[BATCH]["plain_ms"], "bound_ms": timing[BATCH]["bound_ms"],
-        "bound_by": timing[BATCH]["bound_by"], "library_ms": None,
+        "bound_by": timing[BATCH]["bound_by"], "library_ms": timing[BATCH]["library_ms"],
+        "library_ms_b64": timing[64]["library_ms"], "library_max_abs_err": library_err,
         "eager_ms": timing[BATCH]["eager_ms"], "single_node_floor_ms": floor_ms,
         "ms_b64": timing[64]["ms"], "plain_ms_b64": timing[64]["plain_ms"], "bound_ms_b64": timing[64]["bound_ms"],
         "bound_by_b64": timing[64]["bound_by"], "eager_ms_b64": timing[64]["eager_ms"],
@@ -1005,6 +1321,10 @@ def main() -> int:
         "launches_eval_driver": launches_eval_driver, "eval_driver_batches": eval_driver_batches,
         "launches_train_driver_step": launches_train_driver_step, "launches_train_driver": launches_train_driver,
         "train_driver_steps": train_driver_steps,
+        "launches_families_eval": launches_families_eval,
+        "launches_families_train_step": launches_families_train_step,
+        "launches_families_eval_driver": launches_families_eval_driver,
+        "launches_families_train_driver_step": launches_families_train_driver,
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

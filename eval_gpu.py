@@ -9,8 +9,11 @@ slp-4mod cover2 / uncover / cover1 splits unless `--dataset` names one, with
 MPJPE, PA-MPJPE, PVE and the body-mask accuracy and F1, and prints each
 split's images/s.  Takes the JAX package's native `.npz` checkpoints and
 reference `.pt` files; without `--checkpoint` the weights are random from a
-fixed seed.  Paths come from INBED_DATA_ROOT, INBED_NPZ_PATH and
-INBED_ASSET_DIR.
+fixed seed.  The frozen-guided fusion pipelines (ir_depth_pm_fusion,
+ir_depth_pm_rgb_fusion) take their guide from
+`--pretrained_fusion_checkpoint`, an ir_depth_fusion `.pt` or `.npz`,
+grafted after `--checkpoint`.  Paths come from INBED_DATA_ROOT,
+INBED_NPZ_PATH and INBED_ASSET_DIR.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ parser.add_argument("--allow_synthetic_assets", default=False, action="store_tru
                     help="Run with synthetic SMPL/regressor stand-ins when real assets are missing "
                          "(metrics NOT reference-comparable)")
 parser.add_argument("--pretrained_fusion_checkpoint", default=None,
-                    help="Guide weights of the ir_depth_pm_fusion pipelines (not ported yet)")
+                    help="An ir_depth_fusion checkpoint (.pt or JAX .npz) grafted as the frozen guide of "
+                         "ir_depth_pm_fusion / ir_depth_pm_rgb_fusion, after --checkpoint")
 parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 DEFAULT_SPLITS = ("slp-4mod-cover2", "slp-4mod-uncover", "slp-4mod-cover1")
@@ -47,9 +51,6 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     if args.crop_cache:
         raise SystemExit("--crop_cache is not ported yet: ROADMAP Queue 1 item 7 (the crop cache)")
-    if args.pretrained_fusion_checkpoint:
-        raise SystemExit("--pretrained_fusion_checkpoint is not ported yet: the fusion families are "
-                         "ROADMAP Queue 1 item 9")
 
     import torch
 
@@ -59,7 +60,7 @@ def main(argv=None) -> dict:
     from inbed_pose_estimation_tpu_torch.evaluation import run_evaluation
     from inbed_pose_estimation_tpu_torch.models import build_model
     from inbed_pose_estimation_tpu_torch.smpl import load_smpl_model, synthetic_smpl_model
-    from inbed_pose_estimation_tpu_torch.train.checkpoint import load_checkpoint, load_torch_checkpoint
+    from inbed_pose_estimation_tpu_torch.train.checkpoint import load_checkpoint, load_guide, load_torch_checkpoint
     from inbed_pose_estimation_tpu_torch.utils.assets_check import check_assets
 
     dev = resolve_device(args.device)
@@ -87,11 +88,18 @@ def main(argv=None) -> dict:
             print("WARNING: gendered SMPL models are SYNTHETIC stand-ins (seeds 1/2, unrelated to the neutral "
                   "model) — gendered-GT metrics (3dpw-style MPJPE/PA/PVE) are meaningless outside tests.")
 
+    meta = {}
     if args.checkpoint:
         if args.checkpoint.endswith(".pt"):
-            load_torch_checkpoint(args.checkpoint, model)
+            meta = load_torch_checkpoint(args.checkpoint, model)
         else:
             load_checkpoint(args.checkpoint, model)
+    # The explicit guide last, over whatever guide --checkpoint held.
+    if args.pretrained_fusion_checkpoint:
+        load_guide(model, args.pretrained_fusion_checkpoint)
+    elif meta.get("main_only"):
+        print("WARNING: no --pretrained_fusion_checkpoint — the reference .pt holds the main stage only, so the "
+              "frozen ir_depth_fusion guide keeps its random weights; metrics are meaningless for this pipeline")
 
     use_device_pre = args.device_preprocess and spec.input_mode in ("concat", "multi")
     if args.device_preprocess and not use_device_pre:

@@ -33,20 +33,30 @@ def load_j_regressor_h36m(path: Optional[str] = None, num_vertices: int = consta
     return J
 
 
-def make_forward_fn(model, spec, num_cas_iters: int = 2, final_recon: bool = True):
+def make_forward_fn(model, spec, num_cas_iters: int = 2, final_recon: bool = True,
+                    smpl_model: Optional[SMPLModel] = None):
     """fn(modality tuple of [B, C, H, W]) -> HMROutput of the final stage.
 
-    Concat-input models only: the modalities are joined on the channel axis
-    and run through the cascade when the spec has one.  The model runs in
-    the mode it is in (`build_model` returns it in eval mode).
+    concat: the modalities joined on the channel axis; multi: the tuple, one
+    trunk each; both through the cascade when the spec has one.  fusion: the
+    model's stage 2, with the recovered images and the body mask ("mask")
+    as `recon`; the model runs `smpl_model` inside.  The model runs in the
+    mode it is in (`build_model` returns it in eval mode).
     """
-    if spec.input_mode != "concat":
+    if spec.input_mode == "concat":
+        def apply_fn(mods, **kw):
+            return model(torch.cat(list(mods), dim=1), **kw)
+    elif spec.input_mode == "multi":
+        def apply_fn(mods, **kw):
+            return model(tuple(mods), **kw)
+    elif spec.input_mode == "fusion":
+        def apply_fn(mods, **kw):
+            fo = model(tuple(mods), smpl_model)
+            return fo.stage2._replace(recon=dict(fo.recovered, mask=fo.mask))
+    else:
         raise NotImplementedError(
-            f"input mode '{spec.input_mode}' is not ported yet: ROADMAP Queue 1 item 9"
+            f"input mode '{spec.input_mode}' is not ported yet: ROADMAP Queue 1 item 9c"
         )
-
-    def apply_fn(mods, **kw):
-        return model(torch.cat(list(mods), dim=1), **kw)
 
     def forward(inputs) -> HMROutput:
         if spec.cascade:
@@ -83,7 +93,7 @@ def make_inference_fn(
     dev = resolve_device(device)
     model.to(dev).eval()
     smpl_model.to(dev)
-    forward = make_forward_fn(model, spec, num_cas_iters, final_recon=final_recon)
+    forward = make_forward_fn(model, spec, num_cas_iters, final_recon=final_recon, smpl_model=smpl_model)
     jreg = None if j_regressor_h36m is None else torch.as_tensor(j_regressor_h36m, dtype=torch.float32, device=dev)
 
     @torch.no_grad()

@@ -46,13 +46,15 @@ def _level(cin: int, n: int) -> nn.Sequential:
 class Reconstruct(nn.Module):
     """(x0..x4) pyramid -> full-resolution 1-channel image.
 
-    2048 -> 1024 -> 512 -> 256 -> 128 with the skip joined at each level,
-    then two ResBlocks, a last upsampler and a 3x3 projection.
+    x4 (`in_features` wide: 2048, or 2048 per trunk when the multi-trunk
+    models fuse their x4 maps) -> 1024 -> 512 -> 256 -> 128 with the
+    single-trunk skip joined at each level, then two ResBlocks, a last
+    upsampler and a 3x3 projection.
     """
 
-    def __init__(self):
+    def __init__(self, in_features: int = 2048):
         super().__init__()
-        self.decDepth1 = _level(2048, 1024)
+        self.decDepth1 = _level(in_features, 1024)
         self.decDepth2 = _level(1024 * 2, 512)
         self.decDepth3 = _level(512 * 2, 256)
         self.decDepth4 = _level(256 * 2, 128)

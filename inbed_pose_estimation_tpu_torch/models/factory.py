@@ -1,8 +1,8 @@
 """Model registry: the registered architecture names and how each is fed.
 
 Every name the JAX package registers has its spec here; `build_model`
-builds the concat-input family that `HMRCore` serves and raises
-`NotImplementedError` for the families not ported yet.
+builds the concat, multi-trunk and fusion families and raises
+`NotImplementedError` for Bodies-At-Rest, not ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ import torch
 
 from ..device import resolve_device
 from ..smpl.assets import mean_params
-from .hmr import HMRCore
+from .fusion import FrozenGuidedFusion, TwoStageFusion
+from .hmr import MODALITY_CHANNELS, HMRCore, MultiTrunkCore
 
 MODALITY_SETS = {
     "rgb": ("img",),
@@ -28,9 +29,6 @@ MODALITY_SETS = {
     "rgb_pm": ("img", "pm_img"),
     "ir_depth_pm": ("ir_img", "depth_img", "pm_img"),
 }
-
-# Channels of each modality in the batch.
-MODALITY_CHANNELS = {"img": 3, "ir_img": 1, "depth_img": 1, "pm_img": 1}
 
 
 @dataclass(frozen=True)
@@ -80,6 +78,17 @@ _SPECS = {
 }
 
 
+# The fusion models' recovered modalities and the input slot of each.
+RECOVER = {
+    "ir_depth_fusion": (("ir", "depth"), (0, 1)),
+    "ir_pm_fusion": (("ir", "pm"), (0, 1)),
+    "rgb_depth_fusion": (("depth",), (1,)),
+    "rgb_pm_fusion": (("pm",), (1,)),
+}
+# The pipelines of a frozen ir_depth_fusion guide and a second fusion stage.
+FROZEN_GUIDED = ("ir_depth_pm_fusion", "ir_depth_pm_rgb_fusion")
+
+
 def model_names() -> list[str]:
     return sorted(_SPECS)
 
@@ -92,19 +101,39 @@ def get_spec(name: str) -> ModelSpec:
 
 def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str | torch.device = "cuda",
                 dropout_rate: float = 0.5):
-    """Build a registered concat-family model on `device`, in eval mode;
-    `dropout_rate` is the IEF head's in training mode.
+    """Build a registered model on `device`, in eval mode; `dropout_rate` is
+    the IEF heads' in training mode.
 
-    Returns (module, spec).  Multi-trunk, fusion and Bodies-At-Rest models
-    raise NotImplementedError: they are ROADMAP Queue 1 item 9.
+    Returns (module, spec):
+      concat: HMRCore on the channel-concatenated modalities, with the
+        spec's decoders;
+      multi: MultiTrunkCore, one trunk per modality, cross attention for
+        featatt_cashmr and ir_depth_featatt_cashmrV2, decoder skips from
+        trunk min(2, n - 1);
+      fusion: TwoStageFusion (the recovered modalities and their slots
+        below), or FrozenGuidedFusion for ir_depth_pm_fusion and
+        ir_depth_pm_rgb_fusion.
+    Bodies-At-Rest (pm_contact input) raises NotImplementedError: it is
+    ROADMAP Queue 1 item 9c.
     """
     spec = get_spec(name)
     dev = resolve_device(device)
-    if spec.input_mode != "concat":
-        raise NotImplementedError(
-            f"model '{name}' ({spec.input_mode} input) is not ported yet: ROADMAP Queue 1 item 9"
-        )
     mp = mean_params(smpl_mean_params)
-    module = HMRCore(spec.in_channels, mp["pose"], mp["shape"], mp["cam"], recon_heads=spec.recon_heads,
-                    dropout_rate=dropout_rate)
+    means = (mp["pose"], mp["shape"], mp["cam"])
+    if spec.input_mode == "concat":
+        module = HMRCore(spec.in_channels, *means, recon_heads=spec.recon_heads, dropout_rate=dropout_rate)
+    elif spec.input_mode == "multi":
+        module = MultiTrunkCore(spec.modalities, *means, recon_heads=spec.recon_heads,
+                                cross_attention=name in ("featatt_cashmr", "ir_depth_featatt_cashmrV2"),
+                                skip_trunk=min(2, len(spec.modalities) - 1), dropout_rate=dropout_rate)
+    elif spec.input_mode == "fusion" and name in FROZEN_GUIDED:
+        module = FrozenGuidedFusion(*means, with_rgb=name == "ir_depth_pm_rgb_fusion", dropout_rate=dropout_rate)
+    elif spec.input_mode == "fusion":
+        heads, slots = RECOVER[name]
+        module = TwoStageFusion([MODALITY_CHANNELS[m] for m in spec.modalities], *means, recover_heads=heads,
+                                recover_slots=slots, dropout_rate=dropout_rate)
+    else:
+        raise NotImplementedError(
+            f"model '{name}' ({spec.input_mode} input) is not ported yet: ROADMAP Queue 1 item 9c"
+        )
     return module.to(dev).eval(), spec

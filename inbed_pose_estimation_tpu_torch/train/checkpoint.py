@@ -10,6 +10,14 @@ generator's state; the fits store is saved beside it as `<name>_fits.npy`
 variables flattened under `var/`, optax's Adam leaves under `opt/`, the
 metadata in a `.json` beside it).  `.pt` files are unpickled: load them only
 from a trusted source.
+
+A frozen-guided fusion pipeline (ir_depth_pm_fusion, ir_depth_pm_rgb_fusion)
+saves its whole state, guide.* and main.*, with Adam over main's
+parameters.  A reference `.pt` of such a name holds the main stage only,
+unprefixed, as the JAX package's `load_torch_checkpoint(target_model=)`
+reads it: the port loads it into `main`, and the guide comes from
+`load_guide` (`--pretrained_fusion_checkpoint`), an ir_depth_fusion `.pt` or
+JAX `.npz`.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.fusion import FrozenGuidedFusion
 from ..weights import jax_state_entries, load_jax_adam_state, load_jax_variables
 
 if TYPE_CHECKING:
@@ -76,6 +85,18 @@ def _pt_meta(ckpt: dict) -> dict:
     return meta
 
 
+def _main_only(module: nn.Module, state: dict) -> bool:
+    """Is `state` a reference main-stage state dict of a frozen-guided
+    pipeline `module`?"""
+    return isinstance(module, FrozenGuidedFusion) and not any(k.startswith(("guide.", "main.")) for k in state)
+
+
+def _load_state(module: nn.Module, state: dict) -> None:
+    """`module.load_state_dict(state, strict=True)`, or into its main stage
+    for a reference main-stage state dict."""
+    (module.main if _main_only(module, state) else module).load_state_dict(state, strict=True)
+
+
 def load_checkpoint(path: str, module: nn.Module) -> dict:
     """Load a JAX package checkpoint's weights into `module` through
     `weights.load_jax_variables` (strict); returns the `.json` metadata
@@ -89,10 +110,15 @@ def load_checkpoint(path: str, module: nn.Module) -> dict:
 def load_torch_checkpoint(path: str, module: nn.Module) -> dict:
     """Load a `.pt` checkpoint's weights into `module`, strictly: the port
     keeps the reference's parameter names.  Returns the metadata the file
-    holds (epoch, batch_idx, batch_size, total_step_count, dataset_perm)."""
+    holds (epoch, batch_idx, batch_size, total_step_count, dataset_perm),
+    and "main_only" when a reference `.pt` filled only the main stage of a
+    frozen-guided pipeline."""
     ckpt = _read_pt(path)
-    module.load_state_dict(ckpt["model"], strict=True)
-    return _pt_meta(ckpt)
+    _load_state(module, ckpt["model"])
+    meta = _pt_meta(ckpt)
+    if _main_only(module, ckpt["model"]):
+        meta["main_only"] = True
+    return meta
 
 
 def save_checkpoint(ckpt_dir: str, state: "TrainState", epoch: int, batch_idx: int, batch_size: int,
@@ -180,7 +206,7 @@ def resume_train_state(path: str, state: "TrainState") -> dict:
             adam_state_from_jax_leaves(state.model, state.optimizer, variables.get("params", {}), opt_leaves)
         return meta
     ckpt = _read_pt(path)
-    state.model.load_state_dict(ckpt["model"], strict=True)
+    _load_state(state.model, ckpt["model"])
     if "optimizer" in ckpt:
         state.optimizer.load_state_dict(ckpt["optimizer"])
     if "generator" in ckpt:
@@ -198,6 +224,8 @@ def load_pretrained(module: nn.Module, path: str) -> int:
         incoming = jax_state_entries(module, _read_npz(path)[0])
     else:
         incoming = _read_pt(path)["model"]
+        if _main_only(module, incoming):
+            incoming = {f"main.{k}": v for k, v in incoming.items()}
     taken = 0
     for key, target in module.state_dict().items():
         src = incoming.get(key)
@@ -205,6 +233,23 @@ def load_pretrained(module: nn.Module, path: str) -> int:
             target.copy_(torch.as_tensor(src))
             taken += 1
     return taken
+
+
+@torch.no_grad()
+def load_guide(module: nn.Module, path: str) -> None:
+    """`--pretrained_fusion_checkpoint`: the weights of an ir_depth_fusion,
+    a `.pt` in the reference layout or a JAX package `.npz`, into the guide
+    of the frozen-guided pipeline `module`, strictly (every guide entry
+    filled, nothing left over).  A model without a guide ignores the flag,
+    with a warning, as the JAX package does."""
+    if not isinstance(module, FrozenGuidedFusion):
+        print("WARNING: --pretrained_fusion_checkpoint is read only by the frozen-guided fusion pipelines "
+              "(ir_depth_pm_fusion, ir_depth_pm_rgb_fusion); this model has no guide, so the flag is ignored")
+        return
+    if path.endswith(".npz"):
+        load_jax_variables(module.guide, _read_npz(path)[0])
+    else:
+        module.guide.load_state_dict(_read_pt(path)["model"], strict=True)
 
 
 def train_state_from_jax(model: nn.Module, jax_state, options, seed: int = 0,

@@ -3,11 +3,10 @@ same names and defaults, `--from_json`, the `config.json` dump, and
 `--device` (cuda by default).
 
 Options that do nothing in the JAX package do nothing here either
-(`--ngpu`, `--pin_memory`, `--mod1_epoch` for the concat family).  Options
+(`--ngpu`, `--pin_memory`, `--mod1_epoch` outside Bodies-At-Rest).  Options
 the port does not implement stop `parse_args` with a message that names
 their ROADMAP item: `--dtype bfloat16`, `--remat`, `--fast_preprocess`,
-`--crop_cache`, `--pretrained_fusion_checkpoint` and a model that is not of
-the concat family.
+`--crop_cache` and the Bodies-At-Rest models.
 """
 
 from __future__ import annotations
@@ -26,8 +25,6 @@ _NOT_PORTED = (
     ("fast_preprocess", bool,
      "--fast_preprocess is not ported yet: ROADMAP Queue 2 (the port's copy of ops/native/preprocess.cc)"),
     ("crop_cache", bool, "--crop_cache is not ported yet: ROADMAP Queue 1 item 7 (the crop cache)"),
-    ("pretrained_fusion_checkpoint", bool,
-     "--pretrained_fusion_checkpoint is not ported yet: the fusion families are ROADMAP Queue 1 item 9"),
 )
 
 
@@ -56,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     io.add_argument("--pretrained_checkpoint", default=None,
                     help="Load a pretrained checkpoint at the beginning of training")
     io.add_argument("--pretrained_fusion_checkpoint", default=None,
-                    help="Guide weights of the ir_depth_pm_fusion pipelines (not ported yet)")
+                    help="An ir_depth_fusion checkpoint (.pt or JAX .npz) grafted as the frozen guide of "
+                         "ir_depth_pm_fusion / ir_depth_pm_rgb_fusion")
 
     tr = p.add_argument_group("Training Options")
     tr.add_argument("--model", default="cashmrV2", help="Model architecture name")
@@ -124,9 +122,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         if unported(getattr(args, name)):
             raise SystemExit(why)
     input_mode = get_spec(args.model).input_mode
-    if input_mode != "concat":
+    if input_mode == "pm_contact":
         raise SystemExit(f"training of model '{args.model}' ({input_mode} input) is not ported yet: "
-                         "ROADMAP Queue 1 item 9")
+                         "ROADMAP Queue 1 item 9c")
     args.log_dir = os.path.join(os.path.abspath(args.log_dir), args.name)
     args.summary_dir = os.path.join(args.log_dir, "tensorboard")
     args.checkpoint_dir = os.path.join(args.log_dir, "checkpoints")

@@ -1,18 +1,23 @@
 """Training of the concat-input family (hmr, hmr4mod, irhmr/depthhmr/pmhmr,
-mulhmr, rechmr, cashmr, cashmrV2, rec3hmr, cas3hmr): the train step, and
-`Trainer`, the epoch driver around it.
+mulhmr, rechmr, cashmr, cashmrV2, rec3hmr, cas3hmr), the multi-trunk family
+(featcat, featcat_cashmr, featatt_cashmr, ir_depth_featatt_cashmrV2) and the
+fusion family (the *_fusion names): the train step, and `Trainer`, the
+epoch driver around it.
 
 One step, in order:
 
     ground-truth SMPL -> fits gather (+ the batch's augmentation) -> fits SMPL
     -> camera translation least squares (ground truth and fits) -> fitting
-    loss of the fits -> cascade of train-mode forwards -> SMPL + projection
-    of the final stage -> [SMPLify, fits scatter where it improved] ->
-    masked losses of the final and earlier stages + recovery L1, x60 ->
-    gradients -> one Adam step
+    loss of the fits -> cascade of train-mode forwards (concat, multi) or
+    the fusion model's two stages -> SMPL + projection of the final stage ->
+    [SMPLify, fits scatter where it improved] -> masked losses of the final
+    and earlier stages + recovery L1 (fusion: + 0.01 x mask L1 and the
+    mask-gated recovery L1), x60 -> gradients -> one Adam step
 
 With SMPLify on, one step runs the SMPL forward, and with it the skinning
-kernel, 6 + 2 * num_smplify_iters times (5 without SMPLify).
+kernel, 6 + 2 * num_smplify_iters times for a 2-pass cascade (5 without
+SMPLify); a fusion model adds one for its body mask, and the frozen-guided
+pipelines one more for the guide's.
 
 The state is updated in place: the model's parameters and BatchNorm
 running statistics, the optimizer's moments and the dropout generator;
@@ -42,10 +47,11 @@ from ..device import resolve_device
 from ..fitting import GMMPrior, make_fitting_loss, make_smplify
 from ..geometry import estimate_translation, perspective_projection, rotmat_to_aa, weak_perspective_to_cam_t
 from ..models import cascade_apply
+from ..models.hmr import TRUNK_NAME
 from ..smpl.model import SMPLModel, smpl_forward
 from ..utils.profiling import StepTimer
 from . import losses as L
-from .checkpoint import latest_checkpoint, load_pretrained, resume_train_state, save_checkpoint
+from .checkpoint import latest_checkpoint, load_guide, load_pretrained, resume_train_state, save_checkpoint
 from .fits_dict import FitsStore, fits_get, fits_set
 
 # Recovered image -> the batch key of its ground truth.
@@ -66,10 +72,16 @@ class TrainState:
     step: int = 0
 
 
+def trainable(model: nn.Module) -> list:
+    """The parameters the step trains: all but a frozen guide's."""
+    return [p for p in model.parameters() if p.requires_grad]
+
+
 def make_optimizer(model: nn.Module, lr: float) -> torch.optim.Adam:
-    """Adam over the model's parameters as optax.adam(lr) sets it: betas
-    (0.9, 0.999), eps 1e-8, no weight decay."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    """Adam over the model's trainable parameters as optax.adam(lr) sets it:
+    betas (0.9, 0.999), eps 1e-8, no weight decay.  A frozen guide gets no
+    Adam state (in JAX its gradient is zero and Adam leaves it in place)."""
+    return torch.optim.Adam(trainable(model), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
 
 
 def init_train_state(model: nn.Module, options, fits, seed: int = 0, device: str | torch.device = "cuda") -> TrainState:
@@ -84,8 +96,13 @@ def init_train_state(model: nn.Module, options, fits, seed: int = 0, device: str
 
 
 def step_feed_keys(spec) -> frozenset:
-    """The batch keys one step of this (concat-input) model reads."""
-    return frozenset(spec.modalities) | frozenset(SCALAR_KEYS) | {UNCOVER_KEY[h] for h in spec.recon_heads}
+    """The batch keys one step of this model reads: a fusion model also
+    reads the ground-truth body mask and every input modality's uncovered
+    image."""
+    keys = set(spec.modalities) | set(SCALAR_KEYS) | {UNCOVER_KEY[h] for h in spec.recon_heads}
+    if spec.input_mode == "fusion":
+        keys |= {"mask_uncover"} | {UNCOVER_KEY[TRUNK_NAME[m]] for m in spec.modalities if TRUNK_NAME[m] in UNCOVER_KEY}
+    return frozenset(keys)
 
 
 def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPrior, options,
@@ -101,15 +118,16 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
     `pixel_noise` [B, 3]: uint8 images cross to the device as uint8 and are
     decoded there (`decode_uint8_batch`) before the cascade.  metrics holds
     the loss and its parts as detached scalars on the device.  Floating
-    inputs are cast to the type of the model's parameters.
+    inputs are cast to the type of the model's parameters.  A fusion batch
+    also holds `mask_uncover` and the uncovered images [B, 1, H, W].
 
-    After a step each parameter's `.grad` holds the gradient that Adam
-    took.  Only concat-input models are ported; the others raise.
+    After a step each trainable parameter's `.grad` holds the gradient that
+    Adam took.  Bodies-At-Rest (pm_contact input) is not ported and raises.
     """
     dev = resolve_device(device)
-    if spec.input_mode != "concat":
+    if spec.input_mode not in ("concat", "multi", "fusion"):
         raise NotImplementedError(f"training of input mode '{spec.input_mode}' is not ported yet: "
-                                  "ROADMAP Queue 1 item 9")
+                                  "ROADMAP Queue 1 item 9c")
     model.to(dev)
     smpl_model.to(dev)
     prior = GMMPrior(*(t.to(dev) for t in prior))
@@ -148,13 +166,20 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
             camera_center = torch.full((B, 2), 0.5 * img_res, dtype=gt_kp2d.dtype, device=gt_kp2d.device)
             opt_joint_loss = fitting_loss_fn(opt_pose, opt_betas, opt_cam_t, camera_center, gt_kp2d_orig).mean(dim=-1)
 
-        # Cascade of train-mode forwards: batch statistics, running-stat
-        # updates and dropout.
-        def apply_fn(mods, **kw):
-            return model(torch.cat(list(mods), dim=1), generator=generator, **kw)
+        # Train-mode forwards (batch statistics, running-stat updates and
+        # dropout): the cascade, or the fusion model's two stages, whose
+        # shared encoder updates its running statistics twice, in order.
+        inputs = tuple(batch[k] for k in spec.modalities)
+        fusion_out = None
+        if spec.input_mode == "fusion":
+            fusion_out = model(inputs, smpl_model, generator=generator)
+            stage_outs = [fusion_out.stage1, fusion_out.stage2]
+        else:
+            def apply_fn(mods, **kw):
+                x = torch.cat(list(mods), dim=1) if spec.input_mode == "concat" else tuple(mods)
+                return model(x, generator=generator, **kw)
 
-        stage_outs = cascade_apply(apply_fn, tuple(batch[k] for k in spec.modalities), num_cas,
-                                   feed_map=spec.cascade_feed_map)
+            stage_outs = cascade_apply(apply_fn, inputs, num_cas, feed_map=spec.cascade_feed_map)
         final = stage_outs[-1]
         pred_vertices, pred_joints, pred_kp2d, pred_cam_t = get_vertices(final.rotmat, final.betas, final.cam)
 
@@ -204,12 +229,22 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
                     + L.camera_scale_regularizer(final.cam))
 
         loss_extra = 0.0
-        for out in [final] + stage_outs[:-1]:
-            for name, img in out.recon.items():
+        if fusion_out is None:
+            for out in [final] + stage_outs[:-1]:
+                for name, img in out.recon.items():
+                    if UNCOVER_KEY.get(name) in batch:
+                        loss_extra = loss_extra + L.recon_l1_loss(img, batch[UNCOVER_KEY[name]])
+                if out is not final:
+                    loss_extra = loss_extra + stage_aux_losses(out)
+        else:
+            # The body mask against the uncovered ground truth, each
+            # recovered image gated by that mask, then stage 1's terms.
+            mask_gt = batch["mask_uncover"]
+            loss_extra = loss_extra + 0.01 * L.recon_l1_loss(fusion_out.mask, mask_gt)
+            for name, img in fusion_out.recovered.items():
                 if UNCOVER_KEY.get(name) in batch:
-                    loss_extra = loss_extra + L.recon_l1_loss(img, batch[UNCOVER_KEY[name]])
-            if out is not final:
-                loss_extra = loss_extra + stage_aux_losses(out)
+                    loss_extra = loss_extra + L.recon_l1_loss(img, batch[UNCOVER_KEY[name]], mask=mask_gt)
+            loss_extra = loss_extra + stage_aux_losses(fusion_out.stage1)
 
         total = (total + loss_extra) * 60.0
         metrics = {
@@ -237,7 +272,7 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
     def train_step(state: TrainState, batch):
         model.train()
         total, fits, metrics = loss_fn(state.fits, to_device(batch), state.generator)
-        params = list(model.parameters())
+        params = trainable(model)
         grads = torch.autograd.grad(total, params, allow_unused=True)
         # A parameter the loss does not reach gets a zero gradient, so that
         # Adam still decays its moments, as optax does.
@@ -255,8 +290,9 @@ class Trainer:
     `options` are the train CLI's (`train.options.parse_args`); `train_ds`
     yields items of the training feed (a `MixedDataset` or `BaseDataset`
     with `is_train=True`).  On construction: the train step, the fits store
-    (seeded from the checkpoint directory, then the static fits), the
-    `--pretrained_checkpoint` weights where their names and shapes match,
+    (seeded from the checkpoint directory, then the static fits), the guide
+    of a frozen-guided fusion pipeline from `--pretrained_fusion_checkpoint`,
+    the `--pretrained_checkpoint` weights where their names and shapes match,
     a fresh Adam and the dropout generator (seed + 1), then, with
     `--resume`, the state of `--checkpoint` or else of the newest
     checkpoint in the directory.  `history` collects what `train` measures,
@@ -277,6 +313,8 @@ class Trainer:
         layout = getattr(train_ds, "fits_layout", None) or [(options.data_train, len(train_ds))]
         self.fits_store = FitsStore(layout, checkpoint_dir=options.checkpoint_dir,
                                     static_fits_dir=config.asset("static_fits"), device=dev)
+        if getattr(options, "pretrained_fusion_checkpoint", None):
+            load_guide(model, options.pretrained_fusion_checkpoint)
         if getattr(options, "pretrained_checkpoint", None):
             load_pretrained(model, options.pretrained_checkpoint)
         self.state = init_train_state(model, options, self.fits_store.array, seed=options.seed + 1, device=dev)

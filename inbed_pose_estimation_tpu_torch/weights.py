@@ -5,9 +5,13 @@
 writes it into the module's parameters and buffers: conv kernels
 [kh, kw, I, O] -> [O, I, kh, kw], dense [I, O] -> [O, I], and BN
 scale / bias / mean / var -> weight / bias / running_mean / running_var.
-It maps the reference state-dict names of the HMRCore family the same way
-the JAX package's checkpoint converter does, and raises on any name or
-leaf left unmapped.  `jax_state_entries` gives the same mapped arrays for
+It maps the reference state-dict names of the concat, multi-trunk and
+fusion families the same way the JAX package's checkpoint converter does,
+with one exception: a multi-trunk model's `feat_extraction_<mod>` trunk is
+flax's `trunk<i>` with i the position of <mod> in the model's feed order
+(the converter's fixed table rgb/ir/depth/pm -> trunk0..3 misplaces the two
+trunks of ir_depth_featatt_cashmrV2).  It raises on any name or leaf left
+unmapped.  `jax_state_entries` gives the same mapped arrays for
 a tolerant load, leaving out what the variables lack.
 
 `load_jax_adam_state` carries optax's Adam moments into a
@@ -17,7 +21,7 @@ a tolerant load, leaving out what the variables lack.
 from __future__ import annotations
 
 import re
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,10 +48,62 @@ def _layer(path: Tuple[str, ...], leaf: str, is_conv: bool):
     return path, flax_leaf, coll
 
 
-def flax_path(key: str) -> Optional[Tuple[Tuple[str, ...], str, str]]:
-    """Map a port state-dict key to (flax module path, leaf, collection)."""
+def _conv_leaf(leaf: str) -> str:
+    return "kernel" if leaf == "weight" else "bias"
+
+
+def _res_block(base: Tuple[str, ...], parts) -> Tuple[Tuple[str, ...], str, str]:
+    """A ResBlock's `body.<i>.<leaf>` under the flax module `base`."""
+    name = _RES_BODY[parts[1]]
+    return _layer(base + (name,), parts[2], name.startswith("conv"))
+
+
+def _fusion_decoder(parts) -> Optional[Tuple[Tuple[str, ...], str, str]]:
+    """The fusion models' dec1 (feat_up's convs at Sequential indices 0, 2,
+    4, 6) and dec{IR,Depth,PM}{2,3} (recover_<head>: down, res_in; mix,
+    res_mix, proj)."""
+    leaf = parts[-1]
+    if parts[0] == "dec1":
+        return ("feat_up", f"conv{int(parts[1]) // 2}"), _conv_leaf(leaf), "params"
+    m = re.match(r"dec(IR|Depth|PM)([23])$", parts[0])
+    if not m:
+        return None
+    base = (f"recover_{m.group(1).lower()}",)
+    if m.group(2) == "2":  # 0 strided conv, 1 ResBlock
+        if parts[1] == "0":
+            return base + ("down",), _conv_leaf(leaf), "params"
+        return _res_block(base + ("res_in",), parts[2:])
+    if parts[1] == "1":  # 0 conv, 1 ResBlock, 2 PixelShuffle, 3 projection
+        return _res_block(base + ("res_mix",), parts[2:])
+    return base + ({"0": "mix", "3": "proj"}[parts[1]],), _conv_leaf(leaf), "params"
+
+
+def flax_path(key: str, trunks: Sequence[str] = ()) -> Optional[Tuple[Tuple[str, ...], str, str]]:
+    """Map a port state-dict key to (flax module path, leaf, collection).
+
+    `trunks` are a multi-trunk model's trunk names (rgb / ir / depth / pm)
+    in feed order: `feat_extraction_<mod>` maps to `trunk<i>` at <mod>'s
+    position there."""
     parts = key.split(".")
     leaf = parts[-1]
+    # Nested models: the fusion encoder, the frozen pipelines' two stages.
+    prefix = {"encoder_1": "encoder", "guide": "guide", "main": "main"}.get(parts[0])
+    if prefix is not None:
+        mapped = flax_path(".".join(parts[1:]), trunks)
+        return None if mapped is None else ((prefix,) + mapped[0], mapped[1], mapped[2])
+    m = re.match(r"feat_extraction_(\w+)$", parts[0])
+    if m:
+        mapped = flax_path(".".join(parts[1:]))
+        if m.group(1) not in trunks or mapped is None or mapped[0][0] != "trunk":
+            return None
+        return (f"trunk{list(trunks).index(m.group(1))}",) + mapped[0][1:], mapped[1], mapped[2]
+    if parts[0] == "cross_att":
+        if leaf == "gamma":
+            return ("cross_att",), "gamma", "params"
+        return ("cross_att", parts[1][:-len("_conv")]), _conv_leaf(leaf), "params"
+    if parts[0] == "dec1" or re.match(r"dec(IR|Depth|PM)[23]$", parts[0]):
+        return _fusion_decoder(parts)
+
     if parts[0] in ("conv1", "bn1"):
         return _layer(("trunk", parts[0]), leaf, parts[0] == "conv1")
 
@@ -118,10 +174,11 @@ def _entries(module: nn.Module, variables: Mapping, strict: bool) -> dict:
     for coll in ("params", "batch_stats"):
         flat.update({(coll,) + k: v for k, v in _flatten(variables.get(coll, {})).items()})
     out, used = {}, set()
+    trunks = getattr(module, "trunk_names", ())
     for key in module.state_dict():
-        if key.endswith("num_batches_tracked") or key in _NOT_IN_FLAX:
+        if key.endswith("num_batches_tracked") or key.rsplit(".", 1)[-1] in _NOT_IN_FLAX:
             continue
-        mapped = flax_path(key)
+        mapped = flax_path(key, trunks)
         if mapped is None:
             if strict:
                 raise ValueError(f"load_jax_variables: no flax mapping for '{key}'")
@@ -172,26 +229,34 @@ def _adam_moments(opt_state):
 
 @torch.no_grad()
 def load_jax_adam_state(module: nn.Module, optimizer: torch.optim.Adam, opt_state) -> torch.optim.Adam:
-    """Write optax Adam moments into `optimizer`, an Adam over
-    `module.parameters()`: mu -> exp_avg, nu -> exp_avg_sq (kernels
-    transposed as `load_jax_variables` does) and count -> step.
+    """Write optax Adam moments into `optimizer`, an Adam over the
+    parameters of `module` that require gradients: mu -> exp_avg, nu ->
+    exp_avg_sq (kernels transposed as `load_jax_variables` does) and count
+    -> step.
 
-    Raises ValueError for a parameter with no flax mapping or no moment, a
-    shape that disagrees, or a moment leaf that no parameter takes.
+    A frozen parameter (a FrozenGuidedFusion's guide) has no Adam state in
+    the port; JAX keeps its moments, at zero since its gradient is zero,
+    and they are left unread.  Raises ValueError for a trainable parameter
+    with no flax mapping or no moment, a shape that disagrees, or a moment
+    leaf that no parameter takes.
     """
     adam = _adam_moments(opt_state)
     mu, nu = _flatten(adam.mu), _flatten(adam.nu)
     step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
     owner = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    trunks = getattr(module, "trunk_names", ())
     used = set()
     for key, param in module.named_parameters():
-        if id(param) not in owner:
-            raise ValueError(f"load_jax_adam_state: parameter '{key}' is not in the optimizer")
-        mapped = flax_path(key)
+        mapped = flax_path(key, trunks)
         if mapped is None or mapped[2] != "params":
             raise ValueError(f"load_jax_adam_state: no flax parameter for '{key}'")
         path, leaf, _ = mapped
         src = path + (leaf,)
+        if not param.requires_grad:
+            used.add(src)
+            continue
+        if id(param) not in owner:
+            raise ValueError(f"load_jax_adam_state: parameter '{key}' is not in the optimizer")
         if src not in mu or src not in nu:
             raise ValueError(f"load_jax_adam_state: '{key}' maps to {'/'.join(src)}, absent from the Adam state")
         moments = []

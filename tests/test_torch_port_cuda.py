@@ -225,6 +225,24 @@ def test_mesh_raster_on_card_matches_cpu(cuda):
             assert int((a.cpu() != b).sum()) == 0
 
 
+def test_body_mask_on_card_matches_cpu(cuda):
+    """K2 (plain torch) on the card against the CPU on the same vertices:
+    posed synthetic SMPL meshes at batch 32, 224^2, splatted at 112^2 and
+    upsampled; no pixel may differ."""
+    from inbed_pose_estimation_tpu_torch.ops.mask_raster import render_body_mask
+
+    smpl = synthetic_smpl_model(0, device="cpu")
+    rng = np.random.default_rng(5)
+    rot = batch_rodrigues(torch.from_numpy(rng.normal(0, 0.3, (32 * 24, 3)).astype(np.float32))).reshape(32, 24, 3, 3)
+    verts, _ = lbs(smpl, torch.from_numpy(rng.normal(0, 0.5, (32, 10)).astype(np.float32)), rot)
+    cam = torch.from_numpy(np.stack([rng.uniform(0.6, 1.4, 32), rng.normal(0, 0.2, 32), rng.normal(0, 0.2, 32)],
+                                    -1).astype(np.float32))
+    cpu = render_body_mask(verts, cam)
+    card = render_body_mask(verts.to(cuda), cam.to(cuda)).cpu()
+    assert (cpu == 1).any() and (cpu == 0).any()
+    assert int((card != cpu).sum()) == 0
+
+
 def test_device_crop_on_card_matches_cpu(cuda):
     """K5 (plain torch) on the card against the CPU: a batch of raw uint8
     frames at the SLP frame size cropped to 224^2 (boxes inside the frame and

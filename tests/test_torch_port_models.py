@@ -163,8 +163,13 @@ def test_factory_covers_registry():
     concat = [n for n in model_names() if get_spec(n).input_mode == "concat"]
     assert sorted(concat) == sorted(["hmr", "hmr4mod", "irhmr", "depthhmr", "pmhmr", "mulhmr", "rechmr",
                                      "cashmr", "cashmrV2", "rec3hmr", "cas3hmr"])
-    for name in set(model_names()) - set(concat):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
+    ported = [n for n in model_names() if get_spec(n).input_mode != "pm_contact"]
+    assert len(ported) == 21
+    for name in ported:
+        port, spec = build_model(name, device="cpu")
+        assert not port.training and spec.name == name
+    for name in ("bodiesAtRest", "bodiesAtRest4mod"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9c"):
             build_model(name, device="cpu")
     port, spec = build_model("cas3hmr", device="cpu")
     assert spec.in_channels == 6 and spec.cascade

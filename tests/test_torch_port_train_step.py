@@ -240,8 +240,8 @@ def test_step_rejects_other_input_modes():
     from inbed_pose_estimation_tpu_torch.models import get_spec
 
     model, _ = build_model("hmr", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_train_step(model, get_spec("featcat"), synthetic_smpl_model(0, device="cpu"),
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9c"):
+        make_train_step(model, get_spec("bodiesAtRest"), synthetic_smpl_model(0, device="cpu"),
                         synthetic_gmm_prior(device="cpu"), Opt(), device="cpu")
 
 

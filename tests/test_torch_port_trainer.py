@@ -389,14 +389,76 @@ def test_train_gpu_runs_on_the_cpu(tree, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--dtype", "bfloat16"], ["--remat"], ["--remat", "decoder"], ["--fast_preprocess"],
-                                  ["--crop_cache", "x"], ["--pretrained_fusion_checkpoint", "x"],
-                                  ["--model", "featcat"]], ids=lambda f: "_".join(f).strip("-"))
+                                  ["--crop_cache", "x"], ["--model", "bodiesAtRest"]],
+                         ids=lambda f: "_".join(f).strip("-"))
 def test_train_gpu_rejects_what_is_not_ported(tmp_path, flag):
     import train_gpu
 
     with pytest.raises(SystemExit, match=r"not ported yet: .*ROADMAP Queue \d"):
         train_gpu.main(_args(tmp_path, *flag))
     assert not (tmp_path / "run").exists()  # refused before anything is written
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for torch in a fusion model's test: the parallel
+    test run puts six workers on the machine's cores, and a thread pool as
+    wide as the machine in each worker contends more than it computes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def guide_pt(tmp_path_factory):
+    """A seeded ir_depth_fusion's state in the reference layout, as
+    `--pretrained_fusion_checkpoint` takes it, and that state."""
+    torch.manual_seed(7)
+    donor, _ = build_model("ir_depth_fusion", device="cpu")
+    path = tmp_path_factory.mktemp("guide") / "guide.pt"
+    torch.save({"model": donor.state_dict()}, path)
+    return str(path), donor.state_dict()
+
+
+def test_train_gpu_grafts_the_fusion_guide(tree, tmp_path, guide_pt, one_torch_thread):
+    """`--pretrained_fusion_checkpoint` is accepted: the guide of
+    ir_depth_pm_fusion holds the file's weights and stays in eval mode in
+    the training model, and Adam holds only the main stage (that a step
+    leaves the guide bitwise: tests/test_torch_port_fusion.py)."""
+    import train_gpu
+
+    path, want = guide_pt
+    args = _args(tmp_path, "--model", "ir_depth_pm_fusion", "--allow_synthetic_assets",
+                 "--pretrained_fusion_checkpoint", path)
+    _, trainer, _ = train_gpu.setup(args)
+    model = trainer.state.model
+    assert model.training and not model.guide.training
+    assert all(torch.equal(v, want[k]) for k, v in model.guide.state_dict().items())
+    assert len(trainer.state.optimizer.param_groups[0]["params"]) == len(list(model.main.parameters()))
+
+
+def test_eval_gpu_grafts_the_fusion_guide(tree, guide_pt, monkeypatch, capsys, one_torch_thread):
+    """eval_gpu.py --pretrained_fusion_checkpoint: the guide is grafted after
+    --checkpoint and the split is scored."""
+    import eval_gpu
+
+    import inbed_pose_estimation_tpu_torch.train.checkpoint as ckpt
+
+    path, want = guide_pt
+    grafted, real = [], ckpt.load_guide
+
+    def spy(module, p):
+        real(module, p)
+        grafted.append(module.guide.state_dict())
+
+    monkeypatch.setattr(ckpt, "load_guide", spy)
+    out = eval_gpu.main(["--model", "ir_depth_pm_fusion", "--pretrained_fusion_checkpoint", path, "--dataset",
+                         "slp-4mod-uncover", "--img_res", str(RES), "--batch_size", "2", "--num_workers", "1",
+                         "--allow_synthetic_assets", "--device", "cpu"])
+    assert len(grafted) == 1 and all(torch.equal(v, want[k]) for k, v in grafted[0].items())
+    r = out["slp-4mod-uncover"]
+    assert np.isfinite(r["mpjpe"]) and r["pa_mpjpe"] <= r["mpjpe"] and r["timing"]["images"] == 4
 
 
 def test_from_json_merges_every_option_but_the_name(tmp_path):

@@ -8,7 +8,8 @@ it raises without a card unless `--device cpu` is given).  Trains on the
 augmented `--data_train` split, writes `epoch_<E>_<B>.pt` checkpoints and
 the fits store to <log_dir>/<name>/checkpoints/, scalars to
 <log_dir>/<name>/tensorboard/scalars.jsonl, scores the `--data_test` splits
-at each epoch's end, and resumes with `--resume`.  Paths come from
+at each epoch's end, and resumes with `--resume`.  The frozen-guided
+fusion pipelines take their guide from `--pretrained_fusion_checkpoint`.  Paths come from
 INBED_DATA_ROOT, INBED_NPZ_PATH and INBED_ASSET_DIR.
 """
 
