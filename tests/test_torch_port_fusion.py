@@ -263,9 +263,10 @@ def test_step_matches_jax_ir_depth_fusion(models, smpl):
     SMPLify and dropout off: the loss and its parts within 3e-3 (relative),
     and each leaf of the new BatchNorm statistics (the shared encoder's,
     updated twice) within 4x float32's own error there: the port's
-    float32-to-float64 distance plus 1e-4 of the leaf's largest value.  In
-    three runs on the CPU the readings were up to 9.8e-4 and 2.2x; they
-    move from run to run.  This step is ill-conditioned at RES 64, batch 2:
+    float32-to-float64 distance plus 1e-4 of the leaf's largest value.  The
+    readings were up to 5.8e-4 and 2.1x on the CPU, and up to 9.8e-4 and
+    2.2x in three runs with JAX's own init values; they move from run to
+    run.  This step is ill-conditioned at RES 64, batch 2:
     layer4's train-mode statistics over 8 values a channel put both float32
     steps (JAX's and the port's) about 5e-3 from the float64 step on a
     variance.
