@@ -53,7 +53,8 @@ Phases, in order; any failure exits non-zero before the last line:
      moments, the dropout generator and the fits as saved) and one more
      step from there.  Its checkpoints go to a temporary directory that is
      deleted;
-  8. families: the multi-trunk and fusion models at full width (224x224,
+  8. families: the 21 ported model names built on the card (Bodies-At-Rest
+     refused); the multi-trunk and fusion models at full width (224x224,
      float32, seeded random weights): eval inference of featatt_cashmr,
      ir_depth_featatt_cashmrV2, ir_depth_fusion and ir_depth_pm_fusion at
      batch 32 (the skinning launches of one call, including the fusion
@@ -871,7 +872,7 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
 
     from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn
     from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
-    from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.models import build_model, get_spec, model_names
     from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
     from inbed_pose_estimation_tpu_torch.ops import skinning as sk
     from inbed_pose_estimation_tpu_torch.ops.mask_raster import render_body_mask
@@ -882,6 +883,25 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
     jreg = load_j_regressor_h36m(num_vertices=V)
     rng = np.random.default_rng(SEED)
     eval_launches, train_launches = {}, {}
+
+    # Every ported name builds on the card; Bodies-At-Rest still raises.
+    built = {}
+    for name in model_names():
+        if get_spec(name).input_mode == "pm_contact":
+            try:
+                build_model(name, device=dev)
+            except NotImplementedError as e:
+                check("item 9c" in str(e), f"{name}: {e}")
+            else:
+                fail(f"{name} built, but Bodies-At-Rest is not ported")
+            continue
+        model, _ = build_model(name, device=dev)
+        check(all(p.is_cuda for p in model.parameters()), f"{name}: parameters off the card")
+        built[name] = sum(p.numel() for p in model.parameters())
+        del model
+    torch.cuda.empty_cache()
+    log("families_build", parameters=built, models=len(built))
+    check(len(built) == 21, f"{len(built)} models built on the card, expected 21")
 
     # Eval inference at batch 32, 224^2.
     for name, expected in FAMILY_EVAL_LAUNCHES.items():
