@@ -53,8 +53,7 @@ Phases, in order; any failure exits non-zero before the last line:
      moments, the dropout generator and the fits as saved) and one more
      step from there.  Its checkpoints go to a temporary directory that is
      deleted;
-  8. families: the 21 ported model names built on the card (Bodies-At-Rest
-     refused); the multi-trunk and fusion models at full width (224x224,
+  8. families: the 23 registered model names built on the card; the multi-trunk and fusion models at full width (224x224,
      float32, seeded random weights): eval inference of featatt_cashmr,
      ir_depth_featatt_cashmrV2, ir_depth_fusion and ir_depth_pm_fusion at
      batch 32 (the skinning launches of one call, including the fusion
@@ -67,7 +66,23 @@ Phases, in order; any failure exits non-zero before the last line:
      for featatt_cashmr and for ir_depth_pm_fusion with a guide checkpoint
      the phase writes (--pretrained_fusion_checkpoint), and one train CLI
      step of ir_depth_pm_fusion with that guide (its launches, the guide
-     bitwise unchanged).
+     bitwise unchanged);
+  9. Bodies-At-Rest and the crop cache: eval inference of bodiesAtRest and
+     bodiesAtRest4mod at batch 32, 224x224, float32, seeded weights (1 / 2
+     skinning launches a call, the vertices against the plain skinning,
+     the estimated map, images/s), both on the card against the CPU at RES
+     64 with a TF32 control, and bodiesAtRest4mod's train step at the
+     CLI's defaults with SMPLify (N = 100) in mode "0" and then mode "1"
+     (205 launches each, the gradients zero in mode "1", the mode-2 stack
+     bitwise unchanged, ms a step); inside phase 6, on its tree, the eval
+     CLI for bodiesAtRest4mod on one split, that split's crop cache built by
+     the port's tool (seconds, items through it bitwise the disk's, a
+     loader batch of 32 from disk / the cache / the cache with
+     --fast_preprocess) and the eval CLI with and without --crop_cache;
+     inside phase 7, on its tree, a 64-row train split's crop cache (the
+     same checks on augmented items, both feeds, a batch of 64) and the
+     train CLI for bodiesAtRest through it at batch 32 over 2 epochs with
+     --mod1_epoch 1 (the step's mode in each epoch).
 Then the kernel table as one JSON line, the nvidia-smi line, and
 {"ok": true, "device": ...} as the last line.
 """
@@ -158,6 +173,34 @@ FAMILY_CARD_VS_CPU_MASK_PIXELS = 0
 # The guide of the frozen pipelines in the CLI runs: a seeded ir_depth_fusion.
 GUIDE_SEED = 3
 
+# Phase 9: Bodies-At-Rest and the crop cache.  Eval inference at batch 32
+# and the skinning launches of one call: the LBS after the network, and for
+# bodiesAtRest4mod the refinement's SMPL forward before it.
+BAR_EVAL_LAUNCHES = {"bodiesAtRest": 1, "bodiesAtRest4mod": 2}
+# bodiesAtRest4mod's train step at the train CLI's defaults with SMPLify
+# (N = 100), in mode "0" and in mode "1": one regression, so 5 + 2N launches,
+# one fewer than a 2-pass cascade (the mask term reuses the final vertices).
+BAR_TRAIN_MODEL, BAR_TRAIN_LAUNCHES = "bodiesAtRest4mod", 205
+# The same weights on the card and on the CPU at RES 64, batch 2: the
+# largest absolute differences; the estimated map must be equal.  The card
+# read rotmat 3.3e-7, betas 2.3e-9, cam 2.8e-9, keypoints 7.2e-7 (PERF.md
+# section 6, PR 7): each limit is 3.5x the reading; TF32 reads 8e-5 to
+# 4e-4 on rotmat and keypoints and must break at least one.
+BAR_CARD_VS_CPU_LIMITS = {"rotmat": 1.2e-6, "betas": 8e-9, "cam": 1e-8, "keypoints_3d_17": 2.5e-6}
+# The eval CLI on phase 6's tree, at its defaults (batch 32, 224x224).
+BAR_EVAL_ARGS = ["--model", "bodiesAtRest4mod", "--allow_synthetic_assets"]
+# The train CLI on phase 7's tree: a split of its first 64 training rows (2
+# steps an epoch at batch 32) read through its crop cache, bodiesAtRest over
+# 2 epochs switching to mode "1" at epoch 1, without SMPLify (4 skinning
+# launches a step).
+BAR_TRAIN_SPLIT, BAR_TRAIN_ROWS = "slp-multi", 64
+BAR_TRAIN_CLI_ARGS = ["--name", "chip_smoke_bar", "--model", "bodiesAtRest", "--data_train", BAR_TRAIN_SPLIT,
+                      "--batch_size", "32", "--num_epochs", "2", "--mod1_epoch", "1", "--summary_steps", "1",
+                      "--data_test", "", "--allow_synthetic_assets"]
+# The crop cache: items compared bitwise with the disk's per feed, the
+# loader's threads and the train batch for the first-batch times.
+CACHE_ITEMS_COMPARED, LOADER_THREADS, CACHE_TRAIN_BATCH = 4, 8, 64
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -175,7 +218,8 @@ def log(phase: str, **fields) -> None:
 
 def train_batch(np, spec, batch_size, res, rows, seed):
     """A synthetic batch with the keys one train step of `spec` reads (NCHW
-    images; a fusion model's ground-truth body mask in {0, 1})."""
+    images; a fusion or Bodies-At-Rest model's ground-truth body mask in
+    {0, 1}, Bodies-At-Rest's contact channels in [0, 1])."""
     from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
     from inbed_pose_estimation_tpu_torch.train import step_feed_keys
 
@@ -196,6 +240,9 @@ def train_batch(np, spec, batch_size, res, rows, seed):
     })
     keys = step_feed_keys(spec) - {"pixel_noise"}
     for k in sorted(keys - set(batch)):
+        if k == "pm_contact":  # Bodies-At-Rest's contact and edge channels, in [0, 1]
+            batch[k] = r.uniform(0, 1, (B, 2, res, res))
+            continue
         image = r.normal(0, 1, (B, 1, res, res))
         batch[k] = image > 0 if k == "mask_uncover" else image
     return {k: np.asarray(v, np.int64 if k == "sample_index" else np.float32) for k, v in batch.items() if k in keys}
@@ -464,9 +511,9 @@ def _point_env_at(env: dict) -> None:
 
 
 def eval_driver_phase(torch, np, dev, smi, cuda_ms):
-    """Phase 6 (and phase 8's eval CLI runs on its tree); returns the
-    skinning launches of the driver's run, its batch count, and the launches
-    of phase 8's runs by model."""
+    """Phase 6 (and phase 8's and phase 9's eval CLI runs on its tree);
+    returns the skinning launches of the driver's run, its batch count, the
+    launches of phase 8's runs by model and of phase 9's."""
     import tempfile
     import types
 
@@ -549,8 +596,9 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
                              "rotmat": [n, 24, 3, 3]}, f"results npz schema {shapes}")
             check(all(np.isfinite(fits[k]).all() for k in fits.files), "results npz: non-finite values")
 
-            # Phase 8's eval CLI runs on this tree.
+            # Phase 8's and phase 9's eval CLI runs on this tree.
             family_launches = families_eval_driver(torch, np, dev, smi, base)
+            bar_launches = bar_eval_driver(torch, np, dev, smi, base)
 
             # The driver's parts at B=32, 224^2, on the first batch of a split.
             # The host time of one batch on the loader's 8 threads, and of
@@ -631,13 +679,14 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    return launches, batches, family_launches
+    return launches, batches, family_launches, bar_launches
 
 
 def train_driver_phase(torch, np, dev, smi):
-    """Phase 7 (and phase 8's train CLI step on its tree); returns the
-    skinning launches of one driver step and of the driver's whole run, its
-    steps, and the launches of phase 8's fusion step."""
+    """Phase 7 (and phase 8's train CLI step and phase 9's train CLI run on
+    its tree); returns the skinning launches of one driver step and of the
+    driver's whole run, its steps, and the launches of phase 8's fusion step
+    and of phase 9's run."""
     import tempfile
 
     import train_gpu
@@ -767,15 +816,16 @@ def train_driver_phase(torch, np, dev, smi):
             del resumed, rs, params
             torch.cuda.empty_cache()
 
-            # Phase 8's train CLI step on this tree.
+            # Phase 8's train CLI step and phase 9's train CLI run on this tree.
             family_launches = families_train_driver(torch, np, dev, smi, base)
+            bar_launches = bar_train_driver(torch, np, dev, smi, base)
         finally:
             for k, v in saved_env.items():
                 if v is None:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    return per_step, launches, steps, family_launches
+    return per_step, launches, steps, family_launches, bar_launches
 
 
 def write_guide(torch, path: str) -> dict:
@@ -872,7 +922,7 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
 
     from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn
     from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
-    from inbed_pose_estimation_tpu_torch.models import build_model, get_spec, model_names
+    from inbed_pose_estimation_tpu_torch.models import build_model, model_names
     from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
     from inbed_pose_estimation_tpu_torch.ops import skinning as sk
     from inbed_pose_estimation_tpu_torch.ops.mask_raster import render_body_mask
@@ -884,24 +934,16 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
     rng = np.random.default_rng(SEED)
     eval_launches, train_launches = {}, {}
 
-    # Every ported name builds on the card; Bodies-At-Rest still raises.
+    # Every registered name builds on the card.
     built = {}
     for name in model_names():
-        if get_spec(name).input_mode == "pm_contact":
-            try:
-                build_model(name, device=dev)
-            except NotImplementedError as e:
-                check("item 9c" in str(e), f"{name}: {e}")
-            else:
-                fail(f"{name} built, but Bodies-At-Rest is not ported")
-            continue
         model, _ = build_model(name, device=dev)
         check(all(p.is_cuda for p in model.parameters()), f"{name}: parameters off the card")
         built[name] = sum(p.numel() for p in model.parameters())
         del model
     torch.cuda.empty_cache()
     log("families_build", parameters=built, models=len(built))
-    check(len(built) == 21, f"{len(built)} models built on the card, expected 21")
+    check(len(built) == 23, f"{len(built)} models built on the card, expected 23")
 
     # Eval inference at batch 32, 224^2.
     for name, expected in FAMILY_EVAL_LAUNCHES.items():
@@ -1038,6 +1080,302 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
         del model, state, step, batch, metrics
         torch.cuda.empty_cache()
     return eval_launches, train_launches
+
+
+def bar_inputs(np, spec, batch, res, rng):
+    """Bodies-At-Rest's inputs: the modalities N(0, 1), then the contact
+    channels in [0, 1]."""
+    from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
+
+    mods = [rng.normal(0, 1, (batch, MODALITY_CHANNELS[m], res, res)).astype(np.float32) for m in spec.modalities]
+    return mods + [rng.uniform(0, 1, (batch, 2, res, res)).astype(np.float32)]
+
+
+def bar_phase(torch, np, dev, smi, smpl):
+    """Phase 9 on synthetic inputs; returns the skinning launches of one eval
+    call per name and of one train step per mode."""
+    import gc
+
+    from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn
+    from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
+    from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+    from inbed_pose_estimation_tpu_torch.smpl import lbs, synthetic_smpl_model
+    from inbed_pose_estimation_tpu_torch.train import FitsStore, build_parser, init_train_state, make_train_step
+
+    V = smpl.v_template.shape[0]
+    jreg = load_j_regressor_h36m(num_vertices=V)
+    rng = np.random.default_rng(SEED + 9)
+    eval_launches, train_launches = {}, {}
+
+    # Eval inference at batch 32, 224^2: launches, the plain skinning, time.
+    for name, expected in BAR_EVAL_LAUNCHES.items():
+        torch.manual_seed(SEED)
+        model, spec = build_model(name, device=dev, img_res=RES)
+        infer = make_inference_fn(model, spec, smpl, jreg, device=dev)
+        inputs = [torch.from_numpy(x).to(dev) for x in bar_inputs(np, spec, BATCH, RES, rng)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.launches = 0
+        out = infer(inputs)
+        torch.cuda.synchronize()
+        eval_launches[name] = sk.launches
+        check(sk.launches == expected, f"{name}: skinning launched {sk.launches} times in one eval call, "
+                                       f"expected {expected}")
+        check(tuple(out["vertices"].shape) == (BATCH, V, 3) and tuple(out["keypoints_3d_17"].shape) == (BATCH, 17, 3),
+              f"{name}: output shapes")
+        for key in ("rotmat", "betas", "cam", "vertices", "keypoints_3d_17"):
+            check(bool(torch.isfinite(out[key]).all()), f"{name}: {key} has non-finite values")
+        with torch.no_grad():
+            ref_verts, _ = lbs(smpl, out["betas"], out["rotmat"], skin=sk.skinning_reference)
+        v_err = (out["vertices"] - ref_verts).abs().max().item()
+        check(v_err <= 1e-5, f"{name}: vertices differ from the plain skinning's by {v_err}")
+        est_map = out["recon"].get("est_map")
+        if est_map is not None:
+            check(tuple(est_map.shape) == (BATCH, 1, RES, RES) and bool(((est_map == 0) | (est_map == 1)).all()),
+                  f"{name}: the estimated map is not a {{0, 1}} map of the input's size")
+        for _ in range(3):
+            infer(inputs)
+        torch.cuda.synchronize()
+        before = sk.launches
+        t0 = time.perf_counter()
+        for _ in range(TIMED_CALLS):
+            infer(inputs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(sk.launches - before == expected * TIMED_CALLS, f"{name}: launches in the timed loop")
+        log("bar_eval", model=name, batch=BATCH, res=RES, launches={"skinning": eval_launches[name]},
+            expected=expected, vertices_vs_plain_max_abs_err=v_err,
+            est_map_mean=None if est_map is None else float(est_map.mean()),
+            images_per_s=BATCH * TIMED_CALLS / seconds, ms_per_batch=1e3 * seconds / TIMED_CALLS, calls=TIMED_CALLS,
+            parameters=sum(p.numel() for p in model.parameters()),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=smi)
+        del model, infer, inputs, out
+        torch.cuda.empty_cache()
+
+    # The same weights on the card and on the CPU at RES 64, batch 2, and a
+    # TF32 control that must break a limit.
+    cpu_smpl = synthetic_smpl_model(SEED, device="cpu")
+    for name in BAR_EVAL_LAUNCHES:
+        torch.manual_seed(SEED + 4)
+        cpu_model, spec = build_model(name, device="cpu", img_res=64)
+        model, _ = build_model(name, device=dev, img_res=64)
+        model.load_state_dict(cpu_model.state_dict())
+        small = bar_inputs(np, spec, 2, 64, rng)
+        infer = make_inference_fn(model, spec, smpl, jreg, device=dev)
+        want = make_inference_fn(cpu_model, spec, cpu_smpl, jreg, device="cpu")(small)
+
+        def readings(got):
+            errs = {k: (got[k].cpu() - want[k]).abs().max().item() for k in BAR_CARD_VS_CPU_LIMITS}
+            errs["est_map_pixels"] = int((got["recon"]["est_map"].cpu() != want["recon"]["est_map"]).sum()) \
+                if "est_map" in want["recon"] else 0
+            return errs
+
+        errs = readings(infer(small))
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        tf32 = readings(infer(small))
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        limits = dict(BAR_CARD_VS_CPU_LIMITS, est_map_pixels=0)
+        log("bar_card_vs_cpu", model=name, res=64, batch=2, max_abs_err=errs, limits=limits, tf32_control=tf32,
+            est_map_mean=float(want["recon"]["est_map"].mean()) if "est_map" in want["recon"] else None, card=smi)
+        for k, v in errs.items():
+            check(v <= limits[k], f"{name} card vs CPU: {k} reads {v:.3g}, limit {limits[k]:.3g}")
+        check(any(v > limits[k] for k, v in tf32.items()),
+              f"{name} card vs CPU: the TF32 control meets every limit, so they cannot tell TF32 from float32")
+        del model, cpu_model, infer
+
+    # bodiesAtRest4mod's train step at the train CLI's defaults with SMPLify:
+    # a mode-0 step, then a mode-1 step (every output detached: zero
+    # gradients, Adam applying its moments).
+    gc.collect()
+    torch.cuda.empty_cache()
+    options = build_parser().parse_args(TRAIN_ARGS)
+    B, N = options.batch_size, options.num_smplify_iters
+    torch.manual_seed(SEED + 1)
+    model, spec = build_model(BAR_TRAIN_MODEL, device=dev, img_res=options.img_res)
+    store = FitsStore("synthetic", FITS_ROWS, device=dev)
+    state = init_train_state(model, options, store.array, seed=SEED, device=dev)
+    prior = synthetic_gmm_prior(device=dev)
+    steps = {m: make_train_step(model, spec, smpl, prior, options, device=dev, bar_mode=m) for m in "01"}
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batch(np, spec, B, options.img_res, FITS_ROWS, SEED).items()}
+    mode2 = {k: v.clone() for k, v in model.state_dict().items() if k.split(".")[0].endswith("_mode2")}
+    for mode, step in steps.items():
+        trained = {k: p.detach().clone() for k, p in model.named_parameters() if not k.split(".")[0].endswith("_mode2")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        train_launches[mode] = sk.launches
+        check(sk.launches == BAR_TRAIN_LAUNCHES, f"{BAR_TRAIN_MODEL} mode {mode}: skinning launched {sk.launches} "
+                                                 f"times in one train step, expected {BAR_TRAIN_LAUNCHES} (N = {N})")
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"mode {mode} train step: a non-finite metric")
+        params = dict(model.named_parameters())
+        moved = sum(int(not torch.equal(v, params[k])) for k, v in trained.items())
+        zero_grads = all(not bool(params[k].grad.any()) for k in trained)
+        check(moved == len(trained), f"mode {mode} step: {moved} of {len(trained)} parameters moved")
+        check(zero_grads == (mode == "1"), f"mode {mode} step: all gradients zero is {zero_grads}")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 2
+        check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"mode {mode} timed steps: a non-finite metric")
+        log("bar_train_step", model=BAR_TRAIN_MODEL, mode=mode, batch=B, res=options.img_res, num_smplify_iters=N,
+            launches={"skinning": train_launches[mode]}, expected=BAR_TRAIN_LAUNCHES, first_step_s=first_s,
+            ms_per_step=ms, images_per_s=1e3 * B / ms, params_moved=moved, all_grads_zero=zero_grads,
+            metrics={k: v.item() for k, v in metrics.items()}, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            card=smi)
+    unchanged = all(torch.equal(v, model.state_dict()[k]) for k, v in mode2.items())
+    log("bar_mode2_unchanged", model=BAR_TRAIN_MODEL, tensors=len(mode2), unchanged=unchanged)
+    check(unchanged and len(mode2) == 16, f"{BAR_TRAIN_MODEL}: the mode-2 stack changed in training")
+    del model, state, steps, batch, metrics
+    torch.cuda.empty_cache()
+    return eval_launches, train_launches
+
+
+def _items_equal(np, a, b) -> bool:
+    return set(a) == set(b) and all(
+        (np.asarray(a[k]).dtype == np.asarray(v).dtype and np.array_equal(a[k], v)) if isinstance(v, np.ndarray)
+        else a[k] == v for k, v in b.items())
+
+
+def _first_batch_ms(ds, batch_size):
+    """The host time of a loader's first batch on LOADER_THREADS threads."""
+    from inbed_pose_estimation_tpu_torch.data import CheckpointDataLoader
+
+    loader = iter(CheckpointDataLoader(ds, batch_size=batch_size, shuffle=False, num_workers=LOADER_THREADS,
+                                       drop_last=False))
+    t0 = time.perf_counter()
+    next(loader)
+    ms = 1e3 * (time.perf_counter() - t0)
+    loader.close()
+    return ms
+
+
+def cache_phase(np, base, split, is_train, options, batch_size, smi):
+    """Phase 9's crop cache on a tree at `base` (INBED_* pointed at it): the
+    port's tool builds `split`'s cache (timed), items through it must equal
+    items from disk bitwise (a train split's on the same seeded
+    augmentation draws, in both feeds), and a loader's first batch of
+    `batch_size` is timed from disk, through the cache, and through the
+    cache with --fast_preprocess.  Returns the cache directory."""
+    import types
+
+    from inbed_pose_estimation_tpu_torch.data import BaseDataset
+    from inbed_pose_estimation_tpu_torch.tools.build_crop_cache import main as build_tool
+
+    cache_dir = f"{base}/crop_cache"
+    t0 = time.perf_counter()
+    build_tool(["--dataset", split, "--out", cache_dir, "--img_res", str(RES), "--progress_every", "0"]
+               + ([] if is_train else ["--eval"]))
+    build_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(cache_dir, f)) for f in os.listdir(cache_dir) if f.startswith(split))
+
+    def dataset(**kw):
+        return BaseDataset(types.SimpleNamespace(**{**options, **kw}), split, is_train=is_train)
+
+    feeds = (False, True) if is_train else (False,)
+    compared = 0
+    for u8 in feeds:
+        disk, cached = dataset(uint8_feed=u8), dataset(uint8_feed=u8, crop_cache=cache_dir)
+        check(cached._cache is not None, f"crop cache of {split} refused")
+        for i in range(CACHE_ITEMS_COMPARED):
+            seed = SEED + i  # train: the same augmentation draws on both sides
+            a = disk.__getitem__(i, rng=np.random.default_rng(seed))
+            b = cached.__getitem__(i, rng=np.random.default_rng(seed))
+            check(_items_equal(np, b, a), f"crop cache: {split} item {i} (uint8 feed {u8}) differs from disk")
+            compared += 1
+    u8 = is_train
+    load_ms = {"disk": _first_batch_ms(dataset(uint8_feed=u8), batch_size),
+               "crop_cache": _first_batch_ms(dataset(uint8_feed=u8, crop_cache=cache_dir), batch_size),
+               "crop_cache_fast_preprocess": _first_batch_ms(
+                   dataset(uint8_feed=u8, crop_cache=cache_dir, fast_preprocess=True), batch_size)}
+    log("crop_cache", split=split, train=is_train, samples=len(dataset()), build_s=build_s, cache_mb=size / 1e6,
+        items_compared_bitwise=compared, uint8_feed=u8, batch=batch_size, threads=LOADER_THREADS,
+        first_batch_ms=load_ms, card=smi)
+    return cache_dir
+
+
+def bar_eval_driver(torch, np, dev, smi, base):
+    """Phase 9 on phase 6's tree: the eval CLI for bodiesAtRest4mod on one
+    split; the crop cache of that split, and the eval CLI (its defaults)
+    with and without it.  Returns bodiesAtRest4mod's skinning launches."""
+    import eval_gpu
+
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+
+    split, batches = "slp-4mod-uncover", -(-EVAL_SAMPLES // BATCH)
+    name, expected = "bodiesAtRest4mod", BAR_EVAL_LAUNCHES["bodiesAtRest4mod"] * batches
+    args = BAR_EVAL_ARGS + ["--dataset", split, "--device", dev.type]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.launches = 0
+    r = eval_gpu.main(args)[split]
+    torch.cuda.synchronize()
+    launches = sk.launches
+    log("bar_eval_driver", args=args, launches={"skinning": launches}, expected=expected, batches=batches,
+        images_per_s=r["timing"]["images_per_s"], seconds=r["timing"]["seconds"],
+        loader_wait_s=r["timing"]["loader_wait_s"], peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        mpjpe=r["mpjpe"], pa_mpjpe=r["pa_mpjpe"], mask_f1=r["mask_f1"], card=smi)
+    check(launches == expected, f"eval_gpu --model {name}: {launches} skinning launches, expected {expected}")
+    check(r["timing"]["images"] == EVAL_SAMPLES and np.isfinite(r["mpjpe"]) and r["pa_mpjpe"] <= r["mpjpe"],
+          f"eval_gpu --model {name}: metrics {r['mpjpe']} / {r['pa_mpjpe']}")
+
+    cache_dir = cache_phase(np, base, split, False, {"img_res": RES}, BATCH, smi)
+    runs = {}
+    for label, extra in (("disk", []), ("crop_cache", ["--crop_cache", cache_dir]), ("disk_again", [])):
+        runs[label] = eval_gpu.main(EVAL_ARGS + ["--dataset", split, "--device", dev.type, *extra])[split]
+    log("crop_cache_eval_driver", args=EVAL_ARGS + ["--dataset", split], split=split,
+        images_per_s={k: v["timing"]["images_per_s"] for k, v in runs.items()},
+        loader_wait_s={k: v["timing"]["loader_wait_s"] for k, v in runs.items()},
+        mpjpe={k: v["mpjpe"] for k, v in runs.items()}, mask_f1={k: v["mask_f1"] for k, v in runs.items()}, card=smi)
+    check(all(runs["crop_cache"][k] == runs["disk"][k] for k in ("mpjpe", "pa_mpjpe", "mask_accuracy", "mask_f1")),
+          "eval_gpu --crop_cache: the metrics differ from the run that read from disk")
+    return launches
+
+
+def bar_train_driver(torch, np, dev, smi, base):
+    """Phase 9 on phase 7's tree: a BAR_TRAIN_ROWS-row train split, its crop
+    cache, and the train CLI for bodiesAtRest through that cache over 2
+    epochs with --mod1_epoch 1 (no SMPLify): the step's mode in each epoch.
+    Returns the run's skinning launches."""
+    import train_gpu
+
+    from inbed_pose_estimation_tpu_torch import config
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+
+    with np.load(config.dataset_file("slp-4mod-train", is_train=True)) as full:
+        np.savez(config.dataset_file(BAR_TRAIN_SPLIT, is_train=True),
+                 **{k: full[k][:BAR_TRAIN_ROWS] for k in full.files})
+    options = {"img_res": RES, "noise_factor": 0.4, "rot_factor": 15.0, "scale_factor": 0.15}
+    cache_dir = cache_phase(np, base, BAR_TRAIN_SPLIT, True, options, CACHE_TRAIN_BATCH, smi)
+    args = BAR_TRAIN_CLI_ARGS + ["--log_dir", f"{base}/bar_logs", "--crop_cache", cache_dir, "--device", dev.type]
+    sk.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_gpu.main(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    modes = [(h["epoch"], h["mode"]) for h in trainer.history if h["kind"] == "bar_mode"]
+    summaries = [h for h in trainer.history if h["kind"] == "summary"]
+    steps_per_epoch = BAR_TRAIN_ROWS // trainer.options.batch_size
+    log("bar_train_driver", args=args, steps=trainer.step_count, modes=modes, launches={"skinning": sk.launches},
+        step_ms=[h["wall_ms_per_step"] for h in summaries], loader_wait_ms=[h["phases_ms"]["data"] for h in summaries],
+        loss=[h["metrics"]["loss"] for h in summaries], run_s=run_s, card=smi)
+    check(modes == [(0, "0"), (1, "1")], f"train_gpu --mod1_epoch 1: the step's modes by epoch were {modes}")
+    check(trainer.step_count == 2 * steps_per_epoch and len(summaries) == trainer.step_count,
+          f"train_gpu bodiesAtRest: {trainer.step_count} steps")
+    check(all(np.isfinite(h["metrics"]["loss"]) for h in summaries), "train_gpu bodiesAtRest: a non-finite loss")
+    check(sk.launches == 4 * trainer.step_count, f"train_gpu bodiesAtRest: {sk.launches} skinning launches")
+    launches = sk.launches
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1315,16 +1653,19 @@ def main() -> int:
     # 5. train step
     launches_train_step = train_phase(torch, np, dev, smi, smpl, cuda_ms)
 
-    # 6. eval driver (with phase 8's eval CLI runs on its tree)
-    launches_eval_driver, eval_driver_batches, launches_families_eval_driver = eval_driver_phase(
-        torch, np, dev, smi, cuda_ms)
+    # 6. eval driver (with phase 8's and 9's eval CLI runs on its tree)
+    launches_eval_driver, eval_driver_batches, launches_families_eval_driver, launches_bar_eval_driver = (
+        eval_driver_phase(torch, np, dev, smi, cuda_ms))
 
-    # 7. train driver (with phase 8's train CLI step on its tree)
-    launches_train_driver_step, launches_train_driver, train_driver_steps, launches_families_train_driver = (
-        train_driver_phase(torch, np, dev, smi))
+    # 7. train driver (with phase 8's and 9's train CLI runs on its tree)
+    (launches_train_driver_step, launches_train_driver, train_driver_steps, launches_families_train_driver,
+     launches_bar_train_driver) = train_driver_phase(torch, np, dev, smi)
 
     # 8. families
     launches_families_eval, launches_families_train_step = families_phase(torch, np, dev, smi, smpl, cuda_ms)
+
+    # 9. Bodies-At-Rest
+    launches_bar_eval, launches_bar_train_step = bar_phase(torch, np, dev, smi, smpl)
 
     kernels = [{
         "name": "skinning", "route": "cuda",
@@ -1345,6 +1686,8 @@ def main() -> int:
         "launches_families_train_step": launches_families_train_step,
         "launches_families_eval_driver": launches_families_eval_driver,
         "launches_families_train_driver_step": launches_families_train_driver,
+        "launches_bar_eval": launches_bar_eval, "launches_bar_train_step": launches_bar_train_step,
+        "launches_bar_eval_driver": launches_bar_eval_driver, "launches_bar_train_driver": launches_bar_train_driver,
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

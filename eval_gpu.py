@@ -4,7 +4,8 @@
     python eval_gpu.py --model cashmrV2 --checkpoint <ckpt> [--dataset ...]
 
 The same flags and defaults as `eval.py`, plus `--device` (default cuda; it
-raises without a card unless `--device cpu` is given).  Scores the
+raises without a card unless `--device cpu` is given) and
+`--fast_preprocess` (the native host crop, as in `train_gpu.py`).  Scores the
 slp-4mod cover2 / uncover / cover1 splits unless `--dataset` names one, with
 MPJPE, PA-MPJPE, PVE and the body-mask accuracy and F1, and prints each
 split's images/s.  Takes the JAX package's native `.npz` checkpoints and
@@ -12,7 +13,9 @@ reference `.pt` files; without `--checkpoint` the weights are random from a
 fixed seed.  The frozen-guided fusion pipelines (ir_depth_pm_fusion,
 ir_depth_pm_rgb_fusion) take their guide from
 `--pretrained_fusion_checkpoint`, an ir_depth_fusion `.pt` or `.npz`,
-grafted after `--checkpoint`.  Paths come from INBED_DATA_ROOT,
+grafted after `--checkpoint`.  `--crop_cache DIR` reads the images through
+a crop cache built by `python -m
+inbed_pose_estimation_tpu_torch.tools.build_crop_cache`.  Paths come from INBED_DATA_ROOT,
 INBED_NPZ_PATH and INBED_ASSET_DIR.
 """
 
@@ -32,7 +35,13 @@ parser.add_argument("--result_file", default=None, help="If set, save detections
 parser.add_argument("--num_cas_iters", default=2, type=int)
 parser.add_argument("--img_res", default=224, type=int)
 parser.add_argument("--no_masks", default=False, action="store_true")
-parser.add_argument("--crop_cache", default=None, help="Pre-decoded crop cache dir (not ported yet)")
+parser.add_argument("--crop_cache", default=None,
+                    help="Directory of a pre-decoded crop cache (python -m "
+                         "inbed_pose_estimation_tpu_torch.tools.build_crop_cache): memmap patch reads in place of "
+                         "the 9 image reads a sample, bit-exact")
+parser.add_argument("--fast_preprocess", default=False, action="store_true",
+                    help="Crop, resize and normalize with the native C++ host kernel (not bit-identical to the "
+                         "reference resampler); eval.py has no such flag")
 parser.add_argument("--device_preprocess", default=False, action="store_true",
                     help="Crop, resize and normalize on the device from the raw uint8 frames")
 parser.add_argument("--allow_synthetic_assets", default=False, action="store_true",
@@ -49,8 +58,6 @@ DEFAULT_SPLITS = ("slp-4mod-cover2", "slp-4mod-uncover", "slp-4mod-cover1")
 def main(argv=None) -> dict:
     """Run the CLI on `argv`; returns {split: run_evaluation's result dict}."""
     args = parser.parse_args(argv)
-    if args.crop_cache:
-        raise SystemExit("--crop_cache is not ported yet: ROADMAP Queue 1 item 7 (the crop cache)")
 
     import torch
 
@@ -70,7 +77,8 @@ def main(argv=None) -> dict:
                  j_regressor_h36m=config.asset("j_regressor_h36m"))
 
     torch.manual_seed(0)  # the weights of a run without --checkpoint
-    model, spec = build_model(args.model, smpl_mean_params=config.asset("smpl_mean_params"), device=dev)
+    model, spec = build_model(args.model, smpl_mean_params=config.asset("smpl_mean_params"), device=dev,
+                              img_res=args.img_res)
     try:
         smpl_model = load_smpl_model(config.asset("smpl_model_dir"), "neutral", device=dev)
     except (FileNotFoundError, OSError, KeyError):
@@ -108,6 +116,8 @@ def main(argv=None) -> dict:
     class _Opt:
         img_res = args.img_res
         device_preprocess = use_device_pre
+        crop_cache = args.crop_cache
+        fast_preprocess = args.fast_preprocess
 
     results = {}
     for split in [args.dataset] if args.dataset else DEFAULT_SPLITS:

@@ -19,6 +19,17 @@ key keeps the JAX package's shape.  Three image feeds:
     to copy);
   * raw (eval with `options.device_preprocess`): the uint8 frames and the
     crop box, for the device crop.
+Two host options, as in the JAX package:
+  * `options.crop_cache` (a directory from `tools/build_crop_cache.py`):
+    the 9 image reads of a sample come from the split's crop cache, and the
+    items are bitwise those read from disk.  A cache that is missing,
+    unreadable, of another length, stale or built for a narrower
+    augmentation is refused with the JAX package's message, and the images
+    are read from disk;
+  * `options.fast_preprocess`: each crop goes through the native kernel
+    (`ops/native`), rotation included, in place of the Pillow crop; not
+    bit-exact with it, bit-exact with the JAX package's build.  It raises
+    when the kernel cannot be built.
 """
 
 from __future__ import annotations
@@ -31,14 +42,10 @@ from scipy import ndimage
 from scipy.ndimage import gaussian_filter
 
 from .. import config, constants
+from ..ops import native
+from .crop_cache import CropCache
 from .image_io import read_gray, read_rgb
 from .transforms import crop, flip_img, flip_kp, flip_pose, rot_aa, transform
-
-# Options of the JAX package's dataset that the port does not implement.
-_NOT_PORTED = {
-    "fast_preprocess": "is not ported yet: ROADMAP Queue 2 (the port's copy of ops/native/preprocess.cc)",
-    "crop_cache": "is not ported yet: ROADMAP Queue 1 item 7 (the crop cache)",
-}
 
 
 def _normalize(img01: np.ndarray, mean, std) -> np.ndarray:
@@ -56,9 +63,6 @@ class BaseDataset:
 
     def __init__(self, options=None, dataset: str = "slp-4mod-uncover", ignore_3d: bool = False,
                  use_augmentation: bool = True, is_train: bool = False):
-        for flag, why in _NOT_PORTED.items():
-            if getattr(options, flag, None):
-                raise NotImplementedError(f"BaseDataset option '{flag}' {why}")
         self.dataset = dataset
         self.is_train = is_train
         self.options = options
@@ -72,6 +76,8 @@ class BaseDataset:
         # card, which agrees with the float feed to one float32 ulp (the
         # host multiplies the noise in float64, the card in float32).
         self.uint8_feed = bool(getattr(options, "uint8_feed", False)) and is_train
+        # The native crop, built now so that a missing compiler stops here.
+        self._native = native.library() if getattr(options, "fast_preprocess", False) else None
         self.img_dir = config.dataset_folder(dataset)
         self.data = np.load(config.dataset_file(dataset, is_train=is_train), allow_pickle=True)
         self.imgname = self.data["imgname"]
@@ -113,6 +119,30 @@ class BaseDataset:
         else:
             self.gender = -1 * np.ones(len(self.imgname), np.int32)
         self.length = self.scale.shape[0]
+        cache_dir = getattr(options, "crop_cache", None)
+        self._cache = self._open_cache(cache_dir) if cache_dir and not self.return_raw else None
+
+    def _open_cache(self, cache_dir: str) -> Optional[CropCache]:
+        """The split's crop cache, or None (and why) when it is refused."""
+        try:
+            cc = CropCache(cache_dir, self.dataset, self.is_train)
+        except FileNotFoundError:
+            print(f"crop cache: no cache for {self.dataset} ({'train' if self.is_train else 'test'}) in "
+                  f"{cache_dir}; reading from disk")
+            return None
+        except Exception as e:  # a corrupt or partial cache is refused like a stale one
+            print(f"crop cache: unreadable ({type(e).__name__}: {e}); reading from disk")
+            return None
+        if len(cc) != self.length:
+            print(f"crop cache: stale ({len(cc)} samples cached, split has {self.length}); reading from disk")
+        elif not cc.matches_index(self):
+            print("crop cache: stale (npz index or source image files changed since the cache was built); "
+                  "reading from disk")
+        elif self.is_train and self.use_augmentation and not cc.covers(self.options):
+            print("crop cache: built for a smaller augmentation range than options request; reading from disk")
+        else:
+            return cc
+        return None
 
     def augm_params(self, rng: Optional[np.random.Generator] = None):
         """(flip, channel noise [3], rotation in degrees, scale), drawn from
@@ -133,8 +163,23 @@ class BaseDataset:
                 rot = 0.0
         return flip, pn, rot, sc
 
+    def _native_processing(self, img, center, scale, rot, flip, pn, as_uint8):
+        """One image [H, W] or [H, W, C] through the native kernel: [res,
+        res, C] in [0, 1] noised with `pn`, or with `as_uint8` the
+        un-noised crop requantized to bytes (np.rint)."""
+        img_u8 = np.ascontiguousarray(img).astype(np.uint8).reshape(*img.shape[:2], -1)
+        C = img_u8.shape[-1]
+        out = native.preprocess_batch(
+            img_u8[None], np.asarray(center, np.float32)[None], np.asarray([scale], np.float32),
+            np.asarray([float(flip)], np.float32), np.asarray(np.ones(3) if as_uint8 else pn, np.float32)[None, :3],
+            self.img_res, np.zeros(C, np.float32), np.ones(C, np.float32), num_threads=1,
+            rots=np.asarray([float(rot)], np.float32))[0]
+        return np.rint(out * 255.0).astype(np.uint8) if as_uint8 else out
+
     def rgb_processing(self, rgb_img, center, scale, rot, flip, pn, as_uint8=False):
         """[H, W, 3]: noised in [0, 1], or the uint8 crop with `as_uint8`."""
+        if self._native is not None:
+            return self._native_processing(rgb_img, center, scale, rot, flip, pn, as_uint8)
         img = crop(rgb_img, center, scale, [self.img_res, self.img_res], rot=rot)
         if flip:
             img = np.ascontiguousarray(flip_img(img))
@@ -147,6 +192,8 @@ class BaseDataset:
 
     def gray_processing(self, gray_img, center, scale, rot, flip, pn, as_uint8=False):
         """[H, W, 1]: noised in [0, 1], or the uint8 crop with `as_uint8`."""
+        if self._native is not None:
+            return self._native_processing(gray_img, center, scale, rot, flip, pn, as_uint8)
         img = crop(gray_img, center, scale, [self.img_res, self.img_res], rot=rot)
         if flip:
             img = np.ascontiguousarray(flip_img(img))
@@ -230,10 +277,14 @@ class BaseDataset:
         depthname = join(self.img_dir, str(self.depthname[index]))
         pmname = join(self.img_dir, str(self.pmname[index]))
 
-        img = read_rgb(imgname)
-        ir_img = read_gray(irname) if self.hasIR else read_rgb(imgname)
-        depth_img = read_gray(depthname) if self.hasDEPTH else read_rgb(imgname)
-        pm_img = read_gray(pmname) if self.hasPM else read_rgb(imgname)
+        cache = self._cache
+        if cache is not None:
+            img, ir_img, depth_img, pm_img = (cache.full(index, m) for m in ("img", "ir", "depth", "pm"))
+        else:
+            img = read_rgb(imgname)
+            ir_img = read_gray(irname) if self.hasIR else read_rgb(imgname)
+            depth_img = read_gray(depthname) if self.hasDEPTH else read_rgb(imgname)
+            pm_img = read_gray(pmname) if self.hasPM else read_rgb(imgname)
         orig_shape = np.array(img.shape)[:2]
 
         if self.has_smpl[index]:
@@ -268,11 +319,13 @@ class BaseDataset:
         def unc(p):
             return p.replace("cover1", "uncover").replace("cover2", "uncover")
 
-        img_unc = self.rgb_processing(read_rgb(unc(imgname)), *box)  # float in both feeds
-        ir_unc = self.gray_processing(read_gray(unc(irname)), *box, as_uint8=u8)
-        depth_unc = self.gray_processing(read_gray(unc(depthname)), *box, as_uint8=u8)
-        pm_unc = self.gray_processing(read_gray(unc(pmname)), *box, as_uint8=u8)
-        mask_unc = self.gray_processing(read_gray(unc(pmname).replace("PM_aligned", "masks")), *box, as_uint8=u8)
+        if cache is not None:
+            unc_raw = [cache.full(index, m) for m in ("img_unc", "ir_unc", "depth_unc", "pm_unc", "mask_unc")]
+        else:
+            unc_raw = [read_rgb(unc(imgname)), read_gray(unc(irname)), read_gray(unc(depthname)),
+                       read_gray(unc(pmname)), read_gray(unc(pmname).replace("PM_aligned", "masks"))]
+        img_unc = self.rgb_processing(unc_raw[0], *box)  # float in both feeds
+        ir_unc, depth_unc, pm_unc, mask_unc = (self.gray_processing(raw, *box, as_uint8=u8) for raw in unc_raw[1:])
 
         if u8:
             # The contact map takes the noised [0, 1] views, derived with

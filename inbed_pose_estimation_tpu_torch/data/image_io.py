@@ -12,10 +12,17 @@ import numpy as np
 
 def read_rgb(path: str) -> np.ndarray:
     """A colour image as float32 [H, W, 3] in RGB order (OpenCV reads BGR)."""
-    img = cv2.imread(path)
+    img = read_rgb_u8(path)
     if img is None:
         raise FileNotFoundError(path)
-    return img[:, :, ::-1].copy().astype(np.float32)
+    return img.astype(np.float32)
+
+
+def read_rgb_u8(path: str) -> Optional[np.ndarray]:
+    """A colour image as uint8 [H, W, 3] in RGB order, or None when it
+    cannot be read."""
+    img = cv2.imread(path)
+    return None if img is None else np.ascontiguousarray(img[:, :, ::-1])
 
 
 def read_gray(path: str) -> np.ndarray:

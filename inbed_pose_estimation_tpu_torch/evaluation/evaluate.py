@@ -125,7 +125,7 @@ def run_evaluation(
     device_preprocess: bool = False,
     device: str | torch.device = "cuda",
 ) -> dict:
-    """Evaluate `model` (concat input family) on `dataset` on `device`.
+    """Evaluate `model` (any input family) on `dataset` on `device`.
 
     Returns {"mpjpe", "pa_mpjpe", "pve" (mm), "mask_accuracy", "mask_f1",
     "parts_accuracy", "parts_f1", "timing"} and appends the metrics to
@@ -203,6 +203,8 @@ def run_evaluation(
     # batch_size with its last sample and the padded rows are sliced off.
     loader = CheckpointDataLoader(dataset, batch_size=batch_size, shuffle=shuffle, num_workers=num_workers,
                                   drop_last=False)
+    # Bodies-At-Rest takes the contact channels after the modalities.
+    feed_keys = spec.modalities + (("pm_contact",) if spec.input_mode == "pm_contact" else ())
     pre_fn = None
     if device_preprocess and spec.input_mode in ("concat", "multi"):
         pre_fn = make_device_preprocess(res=img_res, device=dev)
@@ -228,7 +230,7 @@ def run_evaluation(
             dev_batch.update(pre_fn({k: dev_batch["raw_" + k] for k in spec.modalities if "raw_" + k in dev_batch},
                                     dev_batch["center"], dev_batch["scale"], np.zeros(batch_size, np.float32),
                                     np.ones((batch_size, 3), np.float32)))
-        preds = infer(tuple(dev_batch[k] for k in spec.modalities))
+        preds = infer(tuple(dev_batch[k] for k in feed_keys))
 
         if eval_pose:
             gt_verts = None

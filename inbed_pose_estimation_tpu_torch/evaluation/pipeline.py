@@ -11,10 +11,11 @@ import torch
 
 from .. import config, constants
 from ..device import resolve_device
-from ..geometry import reconstruction_error
+from ..geometry import perspective_projection, reconstruction_error, weak_perspective_to_cam_t
 from ..models import cascade_apply
 from ..models.hmr import HMROutput
-from ..smpl.model import SMPLModel, lbs
+from ..ops.mask_raster import splat_points_to_mask
+from ..smpl.model import SMPLModel, lbs, smpl_forward
 
 
 def load_j_regressor_h36m(path: Optional[str] = None, num_vertices: int = constants.NUM_VERTICES) -> np.ndarray:
@@ -40,8 +41,15 @@ def make_forward_fn(model, spec, num_cas_iters: int = 2, final_recon: bool = Tru
     concat: the modalities joined on the channel axis; multi: the tuple, one
     trunk each; both through the cascade when the spec has one.  fusion: the
     model's stage 2, with the recovered images and the body mask ("mask")
-    as `recon`; the model runs `smpl_model` inside.  The model runs in the
-    mode it is in (`build_model` returns it in eval mode).
+    as `recon`; the model runs `smpl_model` inside.  pm_contact
+    (Bodies-At-Rest): the modalities and the contact channels (the tuple's
+    last element) joined on the channel axis, regressed in mode "0"; for
+    bodiesAtRest4mod with `smpl_model`, a refinement: the 49 joints of that
+    regression projected at the input's resolution, splatted into an
+    estimated body map (5x5 dilation), and the stack with that map as its
+    last channel regressed in mode "2", with the map as `recon["est_map"]`.
+    The model runs in the mode it is in (`build_model` returns it in eval
+    mode).
     """
     if spec.input_mode == "concat":
         def apply_fn(mods, **kw):
@@ -53,10 +61,22 @@ def make_forward_fn(model, spec, num_cas_iters: int = 2, final_recon: bool = Tru
         def apply_fn(mods, **kw):
             fo = model(tuple(mods), smpl_model)
             return fo.stage2._replace(recon=dict(fo.recovered, mask=fo.mask))
+    elif spec.input_mode == "pm_contact" and spec.name == "bodiesAtRest4mod" and smpl_model is not None:
+        def apply_fn(mods, **kw):
+            stacked = torch.cat(list(mods), dim=1)
+            out = model(stacked, mode="0")
+            res, B = stacked.shape[-1], stacked.shape[0]
+            joints = smpl_forward(smpl_model, out.betas, rot_mats=out.rotmat).joints
+            cam_t = weak_perspective_to_cam_t(out.cam, constants.FOCAL_LENGTH, res)
+            eye = torch.eye(3, dtype=joints.dtype, device=joints.device).expand(B, 3, 3)
+            uv = perspective_projection(joints, eye, cam_t, constants.FOCAL_LENGTH, torch.zeros_like(cam_t[:, :2]))
+            est_map = splat_points_to_mask(uv + 0.5 * res, res, res, dilation=5)
+            return model(torch.cat([stacked, est_map], dim=1), mode="2")._replace(recon={"est_map": est_map})
+    elif spec.input_mode == "pm_contact":
+        def apply_fn(mods, **kw):
+            return model(torch.cat(list(mods), dim=1), mode="0")
     else:
-        raise NotImplementedError(
-            f"input mode '{spec.input_mode}' is not ported yet: ROADMAP Queue 1 item 9c"
-        )
+        raise ValueError(f"unsupported input mode '{spec.input_mode}'")
 
     def forward(inputs) -> HMROutput:
         if spec.cascade:
@@ -85,7 +105,8 @@ def make_inference_fn(
     """The full eval step on `device`: fn(modality tuple) -> dict.
 
     Moves the model and SMPL assets to `device`; the inputs (NCHW tensors or
-    arrays, one per modality) are moved there on each call.  Outputs:
+    arrays, one per modality, then Bodies-At-Rest's contact channels) are
+    moved there on each call.  Outputs:
     rotmat, betas, cam, vertices [B, V, 3], recon, and keypoints_3d_17 when
     a J-regressor is given.  Puts the model in eval mode and runs without
     autograd.

@@ -1,4 +1,5 @@
 from .attention import CrossAttention
+from .bodies_at_rest import BodiesAtRest
 from .backbone import Bottleneck, ResNet50Trunk
 from .cascade import cascade_apply
 from .decoder import Reconstruct, ResBlock
@@ -7,6 +8,7 @@ from .fusion import FrozenGuidedFusion, FusionOutput, TwoStageFusion
 from .hmr import HMRCore, HMROutput, MultiTrunkCore
 
 __all__ = [
+    "BodiesAtRest",
     "Bottleneck",
     "CrossAttention",
     "FrozenGuidedFusion",

@@ -1,8 +1,7 @@
 """Model registry: the registered architecture names and how each is fed.
 
-Every name the JAX package registers has its spec here; `build_model`
-builds the concat, multi-trunk and fusion families and raises
-`NotImplementedError` for Bodies-At-Rest, not ported yet.
+Every name the JAX package registers has its spec here, and `build_model`
+builds each of them.
 """
 
 from __future__ import annotations
@@ -12,8 +11,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..constants import IMG_RES
 from ..device import resolve_device
 from ..smpl.assets import mean_params
+from .bodies_at_rest import BodiesAtRest
 from .fusion import FrozenGuidedFusion, TwoStageFusion
 from .hmr import MODALITY_CHANNELS, HMRCore, MultiTrunkCore
 
@@ -87,6 +88,9 @@ RECOVER = {
 }
 # The pipelines of a frozen ir_depth_fusion guide and a second fusion stage.
 FROZEN_GUIDED = ("ir_depth_pm_fusion", "ir_depth_pm_rgb_fusion")
+# Bodies-At-Rest: the first stack's input channels (the modalities and the
+# two contact channels).
+BAR_CHANNELS = {"bodiesAtRest": 3, "bodiesAtRest4mod": 8}
 
 
 def model_names() -> list[str]:
@@ -100,9 +104,11 @@ def get_spec(name: str) -> ModelSpec:
 
 
 def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str | torch.device = "cuda",
-                dropout_rate: float = 0.5):
-    """Build a registered model on `device`, in eval mode; `dropout_rate` is
-    the IEF heads' in training mode.
+                dropout_rate: Optional[float] = None, img_res: int = IMG_RES):
+    """Build a registered model on `device`, in eval mode.  `dropout_rate`
+    is the rate of its dropout in training mode; None keeps the family's:
+    0.5 in the IEF heads, 0.1 in Bodies-At-Rest's tanh stack.  `img_res`
+    sizes Bodies-At-Rest's fc1 (the other families pool to a fixed width).
 
     Returns (module, spec):
       concat: HMRCore on the channel-concatenated modalities, with the
@@ -112,28 +118,30 @@ def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str |
         trunk min(2, n - 1);
       fusion: TwoStageFusion (the recovered modalities and their slots
         below), or FrozenGuidedFusion for ir_depth_pm_fusion and
-        ir_depth_pm_rgb_fusion.
-    Bodies-At-Rest (pm_contact input) raises NotImplementedError: it is
-    ROADMAP Queue 1 item 9c.
+        ir_depth_pm_rgb_fusion;
+      pm_contact: BodiesAtRest over 3 (bodiesAtRest) or 8
+        (bodiesAtRest4mod) channels; bodiesAtRest4mod also carries the
+        mode-2 refinement stack, as the JAX package's eval builds it.
     """
     spec = get_spec(name)
     dev = resolve_device(device)
+    if spec.input_mode == "pm_contact":
+        module = BodiesAtRest(BAR_CHANNELS[name], img_res, with_mode2=name == "bodiesAtRest4mod",
+                              dropout_rate=0.1 if dropout_rate is None else dropout_rate)
+        return module.to(dev).eval(), spec
+    rate = 0.5 if dropout_rate is None else dropout_rate
     mp = mean_params(smpl_mean_params)
     means = (mp["pose"], mp["shape"], mp["cam"])
     if spec.input_mode == "concat":
-        module = HMRCore(spec.in_channels, *means, recon_heads=spec.recon_heads, dropout_rate=dropout_rate)
+        module = HMRCore(spec.in_channels, *means, recon_heads=spec.recon_heads, dropout_rate=rate)
     elif spec.input_mode == "multi":
         module = MultiTrunkCore(spec.modalities, *means, recon_heads=spec.recon_heads,
                                 cross_attention=name in ("featatt_cashmr", "ir_depth_featatt_cashmrV2"),
-                                skip_trunk=min(2, len(spec.modalities) - 1), dropout_rate=dropout_rate)
-    elif spec.input_mode == "fusion" and name in FROZEN_GUIDED:
-        module = FrozenGuidedFusion(*means, with_rgb=name == "ir_depth_pm_rgb_fusion", dropout_rate=dropout_rate)
-    elif spec.input_mode == "fusion":
+                                skip_trunk=min(2, len(spec.modalities) - 1), dropout_rate=rate)
+    elif name in FROZEN_GUIDED:
+        module = FrozenGuidedFusion(*means, with_rgb=name == "ir_depth_pm_rgb_fusion", dropout_rate=rate)
+    else:
         heads, slots = RECOVER[name]
         module = TwoStageFusion([MODALITY_CHANNELS[m] for m in spec.modalities], *means, recover_heads=heads,
-                                recover_slots=slots, dropout_rate=dropout_rate)
-    else:
-        raise NotImplementedError(
-            f"model '{name}' ({spec.input_mode} input) is not ported yet: ROADMAP Queue 1 item 9c"
-        )
+                                recover_slots=slots, dropout_rate=rate)
     return module.to(dev).eval(), spec

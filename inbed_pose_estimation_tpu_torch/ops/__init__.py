@@ -1,1 +1,2 @@
-"""Hand-written CUDA kernels of the port and their wrappers."""
+"""Hand-written kernels of the port and their wrappers: the CUDA kernels of
+`csrc/` and the native host crop of `native/`."""

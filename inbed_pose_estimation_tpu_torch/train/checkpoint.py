@@ -18,6 +18,12 @@ unprefixed, as the JAX package's `load_torch_checkpoint(target_model=)`
 reads it: the port loads it into `main`, and the guide comes from
 `load_guide` (`--pretrained_fusion_checkpoint`), an ir_depth_fusion `.pt` or
 JAX `.npz`.
+
+The reference's Bodies-At-Rest class always held both stacks; the port's
+bodiesAtRest has only the first (it never runs mode 2), so the `_mode2`
+entries of such a `.pt` are left out of its strict load.  A JAX `.npz` of
+bodiesAtRest4mod from the JAX trainer lacks the mode-2 stack; the port's
+model keeps its values there (`weights.py`).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.bodies_at_rest import BodiesAtRest
 from ..models.fusion import FrozenGuidedFusion
 from ..weights import jax_state_entries, load_jax_adam_state, load_jax_variables
 
@@ -93,7 +100,10 @@ def _main_only(module: nn.Module, state: dict) -> bool:
 
 def _load_state(module: nn.Module, state: dict) -> None:
     """`module.load_state_dict(state, strict=True)`, or into its main stage
-    for a reference main-stage state dict."""
+    for a reference main-stage state dict; a Bodies-At-Rest model without
+    the mode-2 stack leaves out the `_mode2` entries."""
+    if isinstance(module, BodiesAtRest) and not module.with_mode2:
+        state = {k: v for k, v in state.items() if not k.split(".")[0].endswith("_mode2")}
     (module.main if _main_only(module, state) else module).load_state_dict(state, strict=True)
 
 

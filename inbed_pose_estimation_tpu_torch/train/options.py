@@ -5,8 +5,7 @@ same names and defaults, `--from_json`, the `config.json` dump, and
 Options that do nothing in the JAX package do nothing here either
 (`--ngpu`, `--pin_memory`, `--mod1_epoch` outside Bodies-At-Rest).  Options
 the port does not implement stop `parse_args` with a message that names
-their ROADMAP item: `--dtype bfloat16`, `--remat`, `--fast_preprocess`,
-`--crop_cache` and the Bodies-At-Rest models.
+their ROADMAP item: `--dtype bfloat16` and `--remat`.
 """
 
 from __future__ import annotations
@@ -15,16 +14,11 @@ import argparse
 import json
 import os
 
-from ..models.factory import get_spec
-
 # (option, is it set to something the port lacks?, why).
 _NOT_PORTED = (
     ("dtype", lambda v: v != "float32",
      "--dtype bfloat16 is not ported yet: ROADMAP Queue 1 item 11 (bfloat16 and rematerialization)"),
     ("remat", bool, "--remat is not ported yet: ROADMAP Queue 1 item 11 (bfloat16 and rematerialization)"),
-    ("fast_preprocess", bool,
-     "--fast_preprocess is not ported yet: ROADMAP Queue 2 (the port's copy of ops/native/preprocess.cc)"),
-    ("crop_cache", bool, "--crop_cache is not ported yet: ROADMAP Queue 1 item 7 (the crop cache)"),
 )
 
 
@@ -96,8 +90,13 @@ def build_parser() -> argparse.ArgumentParser:
     rt.add_argument("--remat", nargs="?", const="stage", default=False, choices=["stage", "decoder"],
                     help="Rematerialize on backward (not ported yet)")
     rt.add_argument("--fast_preprocess", default=False, action="store_true",
-                    help="Native C++ host crop (not ported yet)")
-    rt.add_argument("--crop_cache", default=None, help="Pre-decoded crop cache directory (not ported yet)")
+                    help="Crop, resize, rotate, noise and normalize with the native C++ host kernel "
+                         "(ops/native/preprocess.cc, built with g++ at first use; not bit-identical to the "
+                         "reference resampler)")
+    rt.add_argument("--crop_cache", default=None,
+                    help="Directory of a pre-decoded crop cache (python -m "
+                         "inbed_pose_estimation_tpu_torch.tools.build_crop_cache): memmap patch reads in place "
+                         "of the 9 image reads a sample, bit-exact")
     rt.add_argument("--uint8_feed", default=True, action=argparse.BooleanOptionalAction,
                     help="Ship post-crop uint8 images to the card and apply noise and normalization there "
                          "(4x fewer bytes to copy; equal to the float32 feed to one ulp).  --no-uint8_feed "
@@ -121,10 +120,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     for name, unported, why in _NOT_PORTED:
         if unported(getattr(args, name)):
             raise SystemExit(why)
-    input_mode = get_spec(args.model).input_mode
-    if input_mode == "pm_contact":
-        raise SystemExit(f"training of model '{args.model}' ({input_mode} input) is not ported yet: "
-                         "ROADMAP Queue 1 item 9c")
     args.log_dir = os.path.join(os.path.abspath(args.log_dir), args.name)
     args.summary_dir = os.path.join(args.log_dir, "tensorboard")
     args.checkpoint_dir = os.path.join(args.log_dir, "checkpoints")

@@ -1,23 +1,33 @@
 """Training of the concat-input family (hmr, hmr4mod, irhmr/depthhmr/pmhmr,
 mulhmr, rechmr, cashmr, cashmrV2, rec3hmr, cas3hmr), the multi-trunk family
-(featcat, featcat_cashmr, featatt_cashmr, ir_depth_featatt_cashmrV2) and the
-fusion family (the *_fusion names): the train step, and `Trainer`, the
-epoch driver around it.
+(featcat, featcat_cashmr, featatt_cashmr, ir_depth_featatt_cashmrV2), the
+fusion family (the *_fusion names) and Bodies-At-Rest (bodiesAtRest,
+bodiesAtRest4mod): the train step, and `Trainer`, the epoch driver around
+it.
 
 One step, in order:
 
     ground-truth SMPL -> fits gather (+ the batch's augmentation) -> fits SMPL
     -> camera translation least squares (ground truth and fits) -> fitting
-    loss of the fits -> cascade of train-mode forwards (concat, multi) or
-    the fusion model's two stages -> SMPL + projection of the final stage ->
-    [SMPLify, fits scatter where it improved] -> masked losses of the final
-    and earlier stages + recovery L1 (fusion: + 0.01 x mask L1 and the
-    mask-gated recovery L1), x60 -> gradients -> one Adam step
+    loss of the fits -> cascade of train-mode forwards (concat, multi),
+    the fusion model's two stages, or Bodies-At-Rest's one regression
+    -> SMPL + projection of the final stage -> [SMPLify, fits scatter where
+    it improved] -> masked losses of the final and earlier stages +
+    recovery L1 (fusion: + 0.01 x mask L1 and the mask-gated recovery L1;
+    Bodies-At-Rest in mode "0": + 0.1 x the L1 of the predicted mesh's body
+    mask, which moves the loss and no gradient), x60 -> gradients -> one
+    Adam step
 
 With SMPLify on, one step runs the SMPL forward, and with it the skinning
 kernel, 6 + 2 * num_smplify_iters times for a 2-pass cascade (5 without
 SMPLify); a fusion model adds one for its body mask, and the frozen-guided
-pipelines one more for the guide's.
+pipelines one more for the guide's; Bodies-At-Rest, one pass, runs one
+fewer than a 2-pass cascade (its mask reuses the final stage's vertices).
+
+Bodies-At-Rest trains in mode "0" until `--mod1_epoch`, then in mode "1",
+where every output is detached: each gradient is zero and Adam still
+applies its moments, as optax does.  bodiesAtRest4mod's mode-2 stack, which
+no training step runs, keeps its values.
 
 The state is updated in place: the model's parameters and BatchNorm
 running statistics, the optimizer's moments and the dropout generator;
@@ -48,6 +58,7 @@ from ..fitting import GMMPrior, make_fitting_loss, make_smplify
 from ..geometry import estimate_translation, perspective_projection, rotmat_to_aa, weak_perspective_to_cam_t
 from ..models import cascade_apply
 from ..models.hmr import TRUNK_NAME
+from ..ops.mask_raster import render_body_mask
 from ..smpl.model import SMPLModel, smpl_forward
 from ..utils.profiling import StepTimer
 from . import losses as L
@@ -98,15 +109,17 @@ def init_train_state(model: nn.Module, options, fits, seed: int = 0, device: str
 def step_feed_keys(spec) -> frozenset:
     """The batch keys one step of this model reads: a fusion model also
     reads the ground-truth body mask and every input modality's uncovered
-    image."""
+    image, Bodies-At-Rest the contact channels and the body mask."""
     keys = set(spec.modalities) | set(SCALAR_KEYS) | {UNCOVER_KEY[h] for h in spec.recon_heads}
     if spec.input_mode == "fusion":
         keys |= {"mask_uncover"} | {UNCOVER_KEY[TRUNK_NAME[m]] for m in spec.modalities if TRUNK_NAME[m] in UNCOVER_KEY}
+    if spec.input_mode == "pm_contact":
+        keys |= {"pm_contact", "mask_uncover"}
     return frozenset(keys)
 
 
 def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPrior, options,
-                    device: str | torch.device = "cuda"):
+                    device: str | torch.device = "cuda", bar_mode: str = "0"):
     """Build train_step(state, batch) -> (state, metrics) on `device`.
 
     `batch` maps the keys of `step_feed_keys(spec)` to arrays or tensors:
@@ -119,15 +132,16 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
     decoded there (`decode_uint8_batch`) before the cascade.  metrics holds
     the loss and its parts as detached scalars on the device.  Floating
     inputs are cast to the type of the model's parameters.  A fusion batch
-    also holds `mask_uncover` and the uncovered images [B, 1, H, W].
+    also holds `mask_uncover` and the uncovered images [B, 1, H, W]; a
+    Bodies-At-Rest batch `pm_contact` [B, 2, H, W] and `mask_uncover`.
 
-    After a step each trainable parameter's `.grad` holds the gradient that
-    Adam took.  Bodies-At-Rest (pm_contact input) is not ported and raises.
+    `bar_mode` is Bodies-At-Rest's mode: "0" (with the body-mask term) or
+    "1" (the step after `--mod1_epoch`).  After a step each trainable
+    parameter's `.grad` holds the gradient that Adam took.
     """
     dev = resolve_device(device)
-    if spec.input_mode not in ("concat", "multi", "fusion"):
-        raise NotImplementedError(f"training of input mode '{spec.input_mode}' is not ported yet: "
-                                  "ROADMAP Queue 1 item 9c")
+    if bar_mode not in ("0", "1"):
+        raise ValueError(f"bar_mode must be '0' or '1', not {bar_mode!r}")
     model.to(dev)
     smpl_model.to(dev)
     prior = GMMPrior(*(t.to(dev) for t in prior))
@@ -174,6 +188,9 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
         if spec.input_mode == "fusion":
             fusion_out = model(inputs, smpl_model, generator=generator)
             stage_outs = [fusion_out.stage1, fusion_out.stage2]
+        elif spec.input_mode == "pm_contact":
+            stage_outs = [model(torch.cat(list(inputs) + [batch["pm_contact"]], dim=1), mode=bar_mode,
+                                generator=generator)]
         else:
             def apply_fn(mods, **kw):
                 x = torch.cat(list(mods), dim=1) if spec.input_mode == "concat" else tuple(mods)
@@ -229,7 +246,13 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
                     + L.camera_scale_regularizer(final.cam))
 
         loss_extra = 0.0
-        if fusion_out is None:
+        if spec.input_mode == "pm_contact":
+            if bar_mode == "0":
+                # The predicted mesh's body mask against the uncovered one.
+                with torch.no_grad():
+                    pred_mask = render_body_mask(pred_vertices, final.cam, img_res=int(img_res))
+                loss_extra = loss_extra + 0.1 * L.recon_l1_loss(pred_mask, batch["mask_uncover"])
+        elif fusion_out is None:
             for out in [final] + stage_outs[:-1]:
                 for name, img in out.recon.items():
                     if UNCOVER_KEY.get(name) in batch:
@@ -273,7 +296,9 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
         model.train()
         total, fits, metrics = loss_fn(state.fits, to_device(batch), state.generator)
         params = trainable(model)
-        grads = torch.autograd.grad(total, params, allow_unused=True)
+        # Bodies-At-Rest's mode "1" detaches every output: no gradient at all.
+        grads = (torch.autograd.grad(total, params, allow_unused=True) if total.requires_grad
+                 else [None] * len(params))
         # A parameter the loss does not reach gets a zero gradient, so that
         # Adam still decays its moments, as optax does.
         for p, g in zip(params, grads):
@@ -297,7 +322,9 @@ class Trainer:
     `--resume`, the state of `--checkpoint` or else of the newest
     checkpoint in the directory.  `history` collects what `train` measures,
     one dict per event: "summary" (metrics, phase means in ms, wall ms per
-    step, images/s), "save" (path, bytes, seconds), "eval" (seconds).
+    step, images/s), "save" (path, bytes, seconds), "eval" (seconds), and
+    for Bodies-At-Rest "bar_mode" (the epoch and the step's mode, "0" or
+    "1", at its start).
     """
 
     def __init__(self, options, model, spec, smpl_model, prior, train_ds, summary_writer=None,
@@ -309,6 +336,9 @@ class Trainer:
         self.train_ds = train_ds
         self.summary_writer = summary_writer
         self.train_step = make_train_step(model, spec, smpl_model, prior, options, device=dev)
+        # Bodies-At-Rest swaps to the mode-1 step from `--mod1_epoch` on.
+        self._mode1_step = (make_train_step(model, spec, smpl_model, prior, options, device=dev, bar_mode="1")
+                            if spec.input_mode == "pm_contact" else None)
         self.feed_keys = step_feed_keys(spec)
         layout = getattr(train_ds, "fits_layout", None) or [(options.data_train, len(train_ds))]
         self.fits_store = FitsStore(layout, checkpoint_dir=options.checkpoint_dir,
@@ -362,6 +392,11 @@ class Trainer:
         timer = StepTimer()
         window_t0, window_steps = time.time(), 0
         for epoch in range(self.epoch0, opts.num_epochs):
+            if self._mode1_step is not None:
+                if epoch >= opts.mod1_epoch:
+                    self.train_step = self._mode1_step
+                self.history.append({"kind": "bar_mode", "epoch": epoch,
+                                     "mode": "1" if self.train_step is self._mode1_step else "0"})
             ckpt = None
             if epoch == self.epoch0 and self.dataset_perm is not None:
                 ckpt = {"dataset_perm": self.dataset_perm, "batch_idx": self.checkpoint_batch_idx}

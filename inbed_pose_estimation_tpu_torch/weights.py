@@ -14,6 +14,23 @@ trunks of ir_depth_featatt_cashmrV2).  It raises on any name or leaf left
 unmapped.  `jax_state_entries` gives the same mapped arrays for
 a tolerant load, leaving out what the variables lack.
 
+Bodies-At-Rest has a map of its own, as the converter's `bar` switch has,
+since its `decpose` / `decshape` / `deccam` collide with the IEF head's
+names: `CNN_packtanh[_mode2].{0,4,7,10}` -> `stack_mode{1,2}/conv0..3`,
+`CNN_fc1[_mode2].0` -> `head_mode{1,2}/fc1` and the decoders ->
+`head_mode{1,2}/*`.  A model's kind picks the map.  Two things differ from
+the converter:
+  * fc1's input rows are permuted between flax's (h, w, c) flatten order
+    and the port's (c, h, w) (`fc1_rows_from_flax` / `fc1_rows_to_flax`),
+    for the weights and for Adam's moments, so that the port computes what
+    JAX computes from the same variables.  The converter only transposes
+    fc1 (`train/checkpoint.py::_dense_w`), so a reference-layout `.pt`
+    reaches JAX with its rows out of order; the port loads such a `.pt` as
+    it is (ROADMAP Queue 3);
+  * the mode-2 stack and head of bodiesAtRest4mod may be absent as a whole
+    from the variables and the Adam state: the JAX trainer never builds
+    them.  They then keep their values, with zero moments.
+
 `load_jax_adam_state` carries optax's Adam moments into a
 `torch.optim.Adam` over the same module.
 """
@@ -78,14 +95,50 @@ def _fusion_decoder(parts) -> Optional[Tuple[Tuple[str, ...], str, str]]:
     return base + ({"0": "mix", "3": "proj"}[parts[1]],), _conv_leaf(leaf), "params"
 
 
-def flax_path(key: str, trunks: Sequence[str] = ()) -> Optional[Tuple[Tuple[str, ...], str, str]]:
+# Bodies-At-Rest's Sequential indices of its four convs (tanh, dropout and
+# the max pool between them have no parameters).
+_BAR_CONVS = {"0": "conv0", "4": "conv1", "7": "conv2", "10": "conv3"}
+# Its flax modules that a JAX train state lacks as a whole.
+_BAR_OPTIONAL = ("stack_mode2", "head_mode2")
+
+
+def _bodies_at_rest_path(parts) -> Optional[Tuple[Tuple[str, ...], str, str]]:
+    mode = "mode2" if parts[0].endswith("_mode2") else "mode1"
+    base = parts[0].removesuffix("_mode2")
+    leaf = _conv_leaf(parts[-1])
+    if base == "CNN_packtanh" and parts[1] in _BAR_CONVS:
+        return (f"stack_{mode}", _BAR_CONVS[parts[1]]), leaf, "params"
+    if base == "CNN_fc1" and parts[1] == "0":
+        return (f"head_{mode}", "fc1"), leaf, "params"
+    if base in ("decpose", "decshape", "deccam"):
+        return (f"head_{mode}", base), leaf, "params"
+    return None
+
+
+def fc1_rows_from_flax(w: np.ndarray, chw: Tuple[int, int, int]) -> np.ndarray:
+    """A flax fc1 kernel [h*w*c, O] (NHWC flatten) -> the port's weight
+    [O, c*h*w] (NCHW flatten)."""
+    c, h, wd = chw
+    return np.ascontiguousarray(w.reshape(h, wd, c, -1).transpose(2, 0, 1, 3).reshape(c * h * wd, -1).T)
+
+
+def fc1_rows_to_flax(w: np.ndarray, chw: Tuple[int, int, int]) -> np.ndarray:
+    """The inverse of `fc1_rows_from_flax`: [O, c*h*w] -> [h*w*c, O]."""
+    c, h, wd = chw
+    return np.ascontiguousarray(w.T.reshape(c, h, wd, -1).transpose(1, 2, 0, 3).reshape(h * wd * c, -1))
+
+
+def flax_path(key: str, trunks: Sequence[str] = (), bodies_at_rest: bool = False
+              ) -> Optional[Tuple[Tuple[str, ...], str, str]]:
     """Map a port state-dict key to (flax module path, leaf, collection).
 
     `trunks` are a multi-trunk model's trunk names (rgb / ir / depth / pm)
     in feed order: `feat_extraction_<mod>` maps to `trunk<i>` at <mod>'s
-    position there."""
+    position there.  `bodies_at_rest` switches to Bodies-At-Rest's map."""
     parts = key.split(".")
     leaf = parts[-1]
+    if bodies_at_rest:
+        return _bodies_at_rest_path(parts)
     # Nested models: the fusion encoder, the frozen pipelines' two stages.
     prefix = {"encoder_1": "encoder", "guide": "guide", "main": "main"}.get(parts[0])
     if prefix is not None:
@@ -157,12 +210,28 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> dict:
     return flat
 
 
-def _to_torch_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
+def _to_torch_layout(arr: np.ndarray, leaf: str, path: Tuple[str, ...] = (), fc1_chw=None) -> np.ndarray:
+    """A flax leaf in the port's layout; `fc1_chw` is a Bodies-At-Rest
+    model's (c, h, w), whose fc1 kernel (at `path`) has its rows permuted."""
     if leaf == "kernel" and arr.ndim == 4:
         return np.transpose(arr, (3, 2, 0, 1))  # [kh, kw, I, O] -> [O, I, kh, kw]
     if leaf == "kernel" and arr.ndim == 2:
+        if fc1_chw is not None and path[-1] == "fc1":
+            return fc1_rows_from_flax(arr, fc1_chw)
         return np.transpose(arr, (1, 0))  # [I, O] -> [O, I]
     return arr
+
+
+def _model_map(module: nn.Module):
+    """(trunk names, is it Bodies-At-Rest, its fc1 (c, h, w)) of `module`."""
+    chw = getattr(module, "fc1_chw", None)
+    return getattr(module, "trunk_names", ()), chw is not None, chw
+
+
+def _absent_optional(path: Tuple[str, ...], present_roots: set, bar: bool) -> bool:
+    """Is `path` under a Bodies-At-Rest module that the tree lacks as a
+    whole (the mode-2 stack and head of a JAX train state)?"""
+    return bar and path[0] in _BAR_OPTIONAL and path[0] not in present_roots
 
 
 def _entries(module: nn.Module, variables: Mapping, strict: bool) -> dict:
@@ -174,11 +243,12 @@ def _entries(module: nn.Module, variables: Mapping, strict: bool) -> dict:
     for coll in ("params", "batch_stats"):
         flat.update({(coll,) + k: v for k, v in _flatten(variables.get(coll, {})).items()})
     out, used = {}, set()
-    trunks = getattr(module, "trunk_names", ())
+    trunks, bar, chw = _model_map(module)
+    roots = {k[1] for k in flat}
     for key in module.state_dict():
         if key.endswith("num_batches_tracked") or key.rsplit(".", 1)[-1] in _NOT_IN_FLAX:
             continue
-        mapped = flax_path(key, trunks)
+        mapped = flax_path(key, trunks, bar)
         if mapped is None:
             if strict:
                 raise ValueError(f"load_jax_variables: no flax mapping for '{key}'")
@@ -186,10 +256,10 @@ def _entries(module: nn.Module, variables: Mapping, strict: bool) -> dict:
         path, leaf, coll = mapped
         src = (coll,) + path + (leaf,)
         if src not in flat:
-            if strict:
+            if strict and not _absent_optional(path, roots, bar):
                 raise ValueError(f"load_jax_variables: '{key}' maps to {'/'.join(src)}, absent from the variables")
             continue
-        out[key] = _to_torch_layout(np.array(flat[src], dtype=np.float32), leaf)  # a writable copy
+        out[key] = _to_torch_layout(np.array(flat[src], dtype=np.float32), leaf, path, chw)  # a writable copy
         used.add(src)
     unused = sorted("/".join(k) for k in set(flat) - used)
     if strict and unused:
@@ -201,8 +271,10 @@ def _entries(module: nn.Module, variables: Mapping, strict: bool) -> dict:
 def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     """Copy flax `variables` into `module` in place; returns the module.
 
-    Raises ValueError for a module key with no mapping or no flax leaf, a
-    shape that disagrees, or a flax leaf that no module key takes.
+    Raises ValueError for a module key with no mapping or no flax leaf (but
+    for Bodies-At-Rest's mode-2 modules absent as a whole, which keep their
+    values), a shape that disagrees, or a flax leaf that no module key
+    takes.
     """
     state = module.state_dict()
     for key, arr in _entries(module, variables, strict=True).items():
@@ -236,18 +308,20 @@ def load_jax_adam_state(module: nn.Module, optimizer: torch.optim.Adam, opt_stat
 
     A frozen parameter (a FrozenGuidedFusion's guide) has no Adam state in
     the port; JAX keeps its moments, at zero since its gradient is zero,
-    and they are left unread.  Raises ValueError for a trainable parameter
-    with no flax mapping or no moment, a shape that disagrees, or a moment
-    leaf that no parameter takes.
+    and they are left unread.  Bodies-At-Rest's mode-2 parameters, which a
+    JAX train state lacks, get zero moments.  Raises ValueError for a
+    trainable parameter with no flax mapping or no moment, a shape that
+    disagrees, or a moment leaf that no parameter takes.
     """
     adam = _adam_moments(opt_state)
     mu, nu = _flatten(adam.mu), _flatten(adam.nu)
     step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
     owner = {id(p) for group in optimizer.param_groups for p in group["params"]}
-    trunks = getattr(module, "trunk_names", ())
+    trunks, bar, chw = _model_map(module)
+    roots = {k[0] for k in mu}
     used = set()
     for key, param in module.named_parameters():
-        mapped = flax_path(key, trunks)
+        mapped = flax_path(key, trunks, bar)
         if mapped is None or mapped[2] != "params":
             raise ValueError(f"load_jax_adam_state: no flax parameter for '{key}'")
         path, leaf, _ = mapped
@@ -257,11 +331,15 @@ def load_jax_adam_state(module: nn.Module, optimizer: torch.optim.Adam, opt_stat
             continue
         if id(param) not in owner:
             raise ValueError(f"load_jax_adam_state: parameter '{key}' is not in the optimizer")
+        if _absent_optional(path, roots, bar):
+            optimizer.state[param] = {"step": step.clone(), "exp_avg": torch.zeros_like(param),
+                                      "exp_avg_sq": torch.zeros_like(param)}
+            continue
         if src not in mu or src not in nu:
             raise ValueError(f"load_jax_adam_state: '{key}' maps to {'/'.join(src)}, absent from the Adam state")
         moments = []
         for tree in (mu, nu):
-            arr = _to_torch_layout(np.array(tree[src], dtype=np.float32), leaf)
+            arr = _to_torch_layout(np.array(tree[src], dtype=np.float32), leaf, path, chw)
             if tuple(arr.shape) != tuple(param.shape):
                 raise ValueError(f"load_jax_adam_state: '{key}' has shape {tuple(param.shape)}, flax {arr.shape}")
             moments.append(torch.from_numpy(np.ascontiguousarray(arr)).to(param.device))

@@ -118,19 +118,28 @@ def test_dataset_items_match_jax_bitwise(tree, split, raw):
         assert ours[0]["img"].shape == (3, RES, RES) and ours[0]["pm_contact"].shape[0] == 2
 
 
-def test_dataset_rejects_what_the_trainer_slice_owns(tree):
-    """The options of the JAX package's dataset that are not ported raise,
-    naming their ROADMAP item, in training and in eval."""
+def test_dataset_rejects_what_the_trainer_slice_owns(tree, tmp_path, capsys):
+    """The JAX package's dataset options are ported, in training and in
+    eval: `fast_preprocess` builds the native crop; a `crop_cache` with no
+    cache for the split is refused with the JAX package's message, and the
+    items are those read from disk."""
     class Fast(_Opt):
         fast_preprocess = True
 
     class Cache(_Opt):
-        crop_cache = "/nowhere"
+        crop_cache = str(tmp_path / "nowhere")
 
-    for opt, flag in ((Fast(), "fast_preprocess"), (Cache(), "crop_cache")):
-        for split, is_train in (("slp-4mod-train", True), ("slp-4mod-uncover", False)):
-            with pytest.raises(NotImplementedError, match=f"'{flag}' is not ported yet: ROADMAP"):
-                BaseDataset(opt, split, is_train=is_train)
+    for split, is_train in (("slp-4mod-train", True), ("slp-4mod-uncover", False)):
+        assert BaseDataset(Fast(), split, is_train=is_train)._native is not None
+        ours, theirs = BaseDataset(Cache(), split, is_train=is_train), JBaseDataset(Cache(), split, is_train=is_train)
+        out = capsys.readouterr().out
+        assert ours._cache is None and out.count("crop cache: no cache for") == 2
+        assert out.splitlines()[0] == out.splitlines()[1]
+        plain = BaseDataset(_Opt(), split, is_train=is_train)
+        a, b = ours.__getitem__(0, rng=np.random.default_rng(1)), plain.__getitem__(0, rng=np.random.default_rng(1))
+        for k, v in b.items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(a[k], v, err_msg=k)
 
 
 class _TrainOpt:

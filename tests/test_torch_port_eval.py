@@ -175,6 +175,13 @@ def test_eval_gpu_runs_on_the_cpu(tree, tmp_path, capsys):
     assert "image dumps" in out and "Queue 1 item 10" in out
     assert (tmp_path / "smpl_fits" / "slp-4mod-uncover_fits.npz").exists()
     # --pretrained_fusion_checkpoint is ported (tests/test_torch_port_trainer.py
-    # drives it through this CLI); --crop_cache is still refused.
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 7"):
-        eval_gpu.main(["--crop_cache", "x", "--device", "cpu"])
+    # drives it through this CLI); so is --crop_cache: a directory without
+    # the split's cache is refused with the JAX package's message and the
+    # images are read from disk (tests/test_torch_port_crop_cache.py runs a
+    # real cache).
+    cached = eval_gpu.main(["--model", "hmr", "--img_res", str(RES), "--batch_size", str(B), "--device", "cpu",
+                            "--allow_synthetic_assets", "--num_workers", "1", "--dataset", "slp-4mod-uncover",
+                            "--crop_cache", str(tmp_path / "no_cache")])["slp-4mod-uncover"]
+    assert "crop cache: no cache for slp-4mod-uncover (test)" in capsys.readouterr().out
+    for k in ("mpjpe", "pa_mpjpe", "mask_f1"):
+        assert cached[k] == r[k], k

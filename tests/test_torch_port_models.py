@@ -163,14 +163,17 @@ def test_factory_covers_registry():
     concat = [n for n in model_names() if get_spec(n).input_mode == "concat"]
     assert sorted(concat) == sorted(["hmr", "hmr4mod", "irhmr", "depthhmr", "pmhmr", "mulhmr", "rechmr",
                                      "cashmr", "cashmrV2", "rec3hmr", "cas3hmr"])
-    ported = [n for n in model_names() if get_spec(n).input_mode != "pm_contact"]
-    assert len(ported) == 21
-    for name in ported:
+    assert len(model_names()) == 23
+    for name in model_names():
         port, spec = build_model(name, device="cpu")
         assert not port.training and spec.name == name
-    for name in ("bodiesAtRest", "bodiesAtRest4mod"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9c"):
-            build_model(name, device="cpu")
+    # Bodies-At-Rest: fc1 sized from the resolution, the mode-2 stack on
+    # bodiesAtRest4mod only, as the JAX package's eval tree has it.
+    for name, channels in (("bodiesAtRest", 3), ("bodiesAtRest4mod", 8)):
+        port, spec = build_model(name, device="cpu", img_res=64)
+        assert spec.input_mode == "pm_contact" and port.CNN_packtanh[0].in_channels == channels
+        assert port.CNN_fc1[0].in_features == 384 * 2 * 2
+        assert hasattr(port, "CNN_packtanh_mode2") == (name == "bodiesAtRest4mod")
     port, spec = build_model("cas3hmr", device="cpu")
     assert spec.in_channels == 6 and spec.cascade
     assert {k.split(".")[0] for k in port.state_dict()} >= {"Reconstruct_depth", "Reconstruct_ir", "Reconstruct_pm"}

@@ -166,8 +166,18 @@ def test_options_match_jax():
 
 @pytest.mark.parametrize("arg", ["--dtype=bfloat16", "--remat", "--crop_cache=x", "--fast_preprocess"])
 def test_options_reject_what_the_port_does_not_implement(arg, tmp_path):
+    """bfloat16 and --remat stop parse_args before anything is written;
+    --crop_cache and --fast_preprocess are ported and pass through, as do
+    the Bodies-At-Rest names."""
+    argv = ["--name", "x", "--log_dir", str(tmp_path), arg]
+    if arg.startswith(("--crop_cache", "--fast_preprocess")):
+        args = parse_args(argv + ["--model", "bodiesAtRest4mod"])
+        assert (args.crop_cache, args.fast_preprocess, args.model) == (
+            "x" if arg.startswith("--crop_cache") else None, arg == "--fast_preprocess", "bodiesAtRest4mod")
+        assert (tmp_path / "x" / "config.json").exists()
+        return
     with pytest.raises(SystemExit, match="is not ported yet: ROADMAP"):
-        parse_args(["--name", "x", "--log_dir", str(tmp_path), arg])
+        parse_args(argv)
     assert not (tmp_path / "x").exists()
 
 

@@ -237,12 +237,23 @@ def test_step_with_smplify_changes_fits():
 
 
 def test_step_rejects_other_input_modes():
-    from inbed_pose_estimation_tpu_torch.models import get_spec
-
-    model, _ = build_model("hmr", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9c"):
-        make_train_step(model, get_spec("bodiesAtRest"), synthetic_smpl_model(0, device="cpu"),
-                        synthetic_gmm_prior(device="cpu"), Opt(), device="cpu")
+    """Every input mode trains, Bodies-At-Rest too (in its modes "0" and
+    "1"); a Bodies-At-Rest mode other than those is rejected."""
+    model, spec = build_model("bodiesAtRest", device="cpu", img_res=RES)
+    smpl, prior = synthetic_smpl_model(0, device="cpu"), synthetic_gmm_prior(device="cpu")
+    with pytest.raises(ValueError, match="bar_mode"):
+        make_train_step(model, spec, smpl, prior, Opt(), device="cpu", bar_mode="2")
+    torch.manual_seed(0)
+    state = init_train_state(model, Opt(), np.zeros((N_FITS, 82), np.float32), seed=1, device="cpu")
+    r = np.random.default_rng(4)
+    batch = {k: v for k, v in _batch(4).items() if k in step_feed_keys(spec)}
+    batch["pm_contact"] = r.uniform(0, 1, (B, 2, RES, RES)).astype(np.float32)
+    batch["mask_uncover"] = (r.uniform(0, 1, (B, 1, RES, RES)) > 0.5).astype(np.float32)
+    before = [p.detach().clone() for p in model.parameters()]
+    for mode in "01":
+        state, metrics = make_train_step(model, spec, smpl, prior, Opt(), device="cpu", bar_mode=mode)(state, batch)
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert state.step == 2 and all(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
 
 
 @pytest.mark.slow

@@ -391,12 +391,29 @@ def test_train_gpu_runs_on_the_cpu(tree, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--dtype", "bfloat16"], ["--remat"], ["--remat", "decoder"], ["--fast_preprocess"],
                                   ["--crop_cache", "x"], ["--model", "bodiesAtRest"]],
                          ids=lambda f: "_".join(f).strip("-"))
-def test_train_gpu_rejects_what_is_not_ported(tmp_path, flag):
+def test_train_gpu_rejects_what_is_not_ported(tree, tmp_path, flag, capsys):
+    """bfloat16 and --remat stop the CLI before anything is written.  The
+    rest are ported: one step of bodiesAtRest (the cheapest model) with the
+    native crop, with a crop cache directory that holds no cache (refused
+    with the JAX package's message, the images read from disk), and as it
+    is."""
     import train_gpu
 
-    with pytest.raises(SystemExit, match=r"not ported yet: .*ROADMAP Queue \d"):
-        train_gpu.main(_args(tmp_path, *flag))
-    assert not (tmp_path / "run").exists()  # refused before anything is written
+    if flag[0] in ("--dtype", "--remat"):
+        with pytest.raises(SystemExit, match=r"not ported yet: .*ROADMAP Queue \d"):
+            train_gpu.main(_args(tmp_path, *flag))
+        assert not (tmp_path / "run").exists()  # refused before anything is written
+        return
+    argv = _args(tmp_path, *flag, "--allow_synthetic_assets", "--time_to_run", "0")
+    argv[argv.index("--model") + 1] = "bodiesAtRest"
+    trainer = train_gpu.main(argv)
+    assert trainer.step_count == 1 and trainer.options.model == "bodiesAtRest"
+    assert [h["kind"] for h in trainer.history] == ["bar_mode", "summary", "save"]
+    assert all(np.isfinite(v) for v in trainer.history[1]["metrics"].values())
+    dataset = trainer.train_ds.datasets[0]
+    assert (dataset._native is not None) == (flag == ["--fast_preprocess"]) and dataset._cache is None
+    if flag[0] == "--crop_cache":
+        assert "crop cache: no cache for slp-4mod-train (train) in x; reading from disk" in capsys.readouterr().out
 
 
 @pytest.fixture

@@ -9,7 +9,10 @@ augmented `--data_train` split, writes `epoch_<E>_<B>.pt` checkpoints and
 the fits store to <log_dir>/<name>/checkpoints/, scalars to
 <log_dir>/<name>/tensorboard/scalars.jsonl, scores the `--data_test` splits
 at each epoch's end, and resumes with `--resume`.  The frozen-guided
-fusion pipelines take their guide from `--pretrained_fusion_checkpoint`.  Paths come from
+fusion pipelines take their guide from `--pretrained_fusion_checkpoint`;
+Bodies-At-Rest switches to its mode-1 step at `--mod1_epoch`.
+`--crop_cache DIR` reads the images through a crop cache, and
+`--fast_preprocess` crops with the native host kernel.  Paths come from
 INBED_DATA_ROOT, INBED_NPZ_PATH and INBED_ASSET_DIR.
 """
 
@@ -41,7 +44,8 @@ def setup(argv=None):
                  gmm_prior_file=config.asset("gmm_prior") if options.run_smplify else None)
 
     torch.manual_seed(options.seed)  # the initial weights
-    model, spec = build_model(options.model, smpl_mean_params=config.asset("smpl_mean_params"), device=dev)
+    model, spec = build_model(options.model, smpl_mean_params=config.asset("smpl_mean_params"), device=dev,
+                              img_res=options.img_res)
     try:
         smpl_model = load_smpl_model(config.asset("smpl_model_dir"), "neutral", device=dev)
     except (FileNotFoundError, OSError, KeyError):
