@@ -82,7 +82,19 @@ Phases, in order; any failure exits non-zero before the last line:
      inside phase 7, on its tree, a 64-row train split's crop cache (the
      same checks on augmented items, both feeds, a batch of 64) and the
      train CLI for bodiesAtRest through it at batch 32 over 2 epochs with
-     --mod1_epoch 1 (the step's mode in each epoch).
+     --mod1_epoch 1 (the step's mode in each epoch);
+ 10. bfloat16 and rematerialization: cashmrV2 eval at batch 32, 224x224 in
+     bfloat16 beside float32 (images/s, ms a batch, one skinning launch a
+     call, the distance of the predictions, the top device kernels of a
+     bfloat16 call), bench_gpu.py as a subprocess, one bfloat16 eval batch
+     of featatt_cashmr, ir_depth_fusion and bodiesAtRest4mod (finite, their
+     distance from float32, 1 / 2 / 2 launches), the bfloat16 forward on the
+     card against the CPU at RES 64 (ratio rule), the train step at batch 64
+     without SMPLify for {float32, bfloat16} x {no remat, stage, decoder}
+     (ms a step, peak memory, the losses of 4 steps), one bfloat16 step
+     with SMPLify (N = 100; 206 launches), tools/bench_train.py at its
+     defaults; inside phase 7, on its tree, one train CLI step with
+     --dtype bfloat16 --remat.
 Then the kernel table as one JSON line, the nvidia-smi line, and
 {"ok": true, "device": ...} as the last line.
 """
@@ -200,6 +212,26 @@ BAR_TRAIN_CLI_ARGS = ["--name", "chip_smoke_bar", "--model", "bodiesAtRest", "--
 # The crop cache: items compared bitwise with the disk's per feed, the
 # loader's threads and the train batch for the first-batch times.
 CACHE_ITEMS_COMPARED, LOADER_THREADS, CACHE_TRAIN_BATCH = 4, 8, 64
+
+# Phase 10: bfloat16 and rematerialization.  Eval in bfloat16 beside float32
+# for cashmrV2 at batch 32, then one batch of each name below (its skinning
+# launches a call are float32's).  The bfloat16 forward on the card against
+# the CPU at RES 64 under the tests' ratio rule: the card's bfloat16
+# distance from the CPU's float32 within BF16_RATIO times the CPU's own
+# bfloat16 distance from it, plus phase 4's float32 tolerance.
+BF16_EVAL_LAUNCHES = {"featatt_cashmr": 1, "ir_depth_fusion": 2, "bodiesAtRest4mod": 2}
+BF16_RATIO = 1.5
+BF16_FLOORS = {"rotmat": 5e-4, "betas": 2e-4, "cam": 2e-4, "keypoints_3d_17": 1e-3}
+# The train step at batch 64, 224^2 without SMPLify for each dtype and each
+# --remat (a warm-up step, then BF16_TIMED_STEPS timed), then one bfloat16
+# step with SMPLify (N = 100).  bfloat16's loss stays within BF16_LOSS_REL of
+# float32's at each step (the JAX package's guardrail, tests/test_bf16_train.py),
+# A remat run's first loss (the forward alone) equals the same dtype's
+# without remat; its later ones are within REMAT_LOSS_REL: recompute changes
+# no number, but float32 cuDNN backward kernels are not deterministic (read
+# 2.0e-4 and 2.1e-4 in float32, 0 in bfloat16; PERF.md section 6).
+REMAT_CASES, BF16_TIMED_STEPS = (False, "stage", "decoder"), 3
+BF16_LOSS_REL, REMAT_LOSS_REL = 0.05, 1e-3
 
 
 def fail(msg: str) -> None:
@@ -683,10 +715,10 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
 
 
 def train_driver_phase(torch, np, dev, smi):
-    """Phase 7 (and phase 8's train CLI step and phase 9's train CLI run on
-    its tree); returns the skinning launches of one driver step and of the
-    driver's whole run, its steps, and the launches of phase 8's fusion step
-    and of phase 9's run."""
+    """Phase 7 (and phase 8's and phase 10's train CLI steps and phase 9's
+    train CLI run on its tree); returns the skinning launches of one driver
+    step and of the driver's whole run, its steps, and the launches of phase
+    8's fusion step, of phase 9's run and of phase 10's step."""
     import tempfile
 
     import train_gpu
@@ -816,16 +848,18 @@ def train_driver_phase(torch, np, dev, smi):
             del resumed, rs, params
             torch.cuda.empty_cache()
 
-            # Phase 8's train CLI step and phase 9's train CLI run on this tree.
+            # Phase 8's and phase 10's train CLI steps and phase 9's train CLI
+            # run on this tree.
             family_launches = families_train_driver(torch, np, dev, smi, base)
             bar_launches = bar_train_driver(torch, np, dev, smi, base)
+            bf16_launches = bf16_train_driver(torch, np, dev, smi, base)
         finally:
             for k, v in saved_env.items():
                 if v is None:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    return per_step, launches, steps, family_launches, bar_launches
+    return per_step, launches, steps, family_launches, bar_launches, bf16_launches
 
 
 def write_guide(torch, path: str) -> dict:
@@ -1378,6 +1412,273 @@ def bar_train_driver(torch, np, dev, smi, base):
     return launches
 
 
+def bf16_train_driver(torch, np, dev, smi, base):
+    """Phase 10 on phase 7's tree: one train CLI step of cashmrV2 with
+    SMPLify, --dtype bfloat16 and --remat; returns its skinning launches."""
+    import train_gpu
+
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+
+    args = TRAIN_DRIVER_ARGS + ["--log_dir", f"{base}/bf16_logs", "--dtype", "bfloat16", "--remat", "--time_to_run",
+                                "0", "--device", dev.type]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_gpu.main(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, expected = sk.launches, 6 + 2 * trainer.options.num_smplify_iters
+    model, opt = trainer.state.model, trainer.state.optimizer
+    summary = [h for h in trainer.history if h["kind"] == "summary"]
+    float32_state = (all(p.dtype == torch.float32 for p in model.parameters())
+                     and all(v.dtype == torch.float32 for st in opt.state.values() for k, v in st.items()
+                             if k != "step"))
+    log("bf16_train_driver", args=args, steps=trainer.step_count, launches={"skinning": launches}, expected=expected,
+        compute_dtype=str(model.conv1.compute_dtype), remat=trainer.options.remat,
+        step_ms=summary[0]["wall_ms_per_step"] if summary else None, run_s=run_s,
+        metrics=summary[0]["metrics"] if summary else None, float32_params_and_moments=float32_state,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=smi)
+    check(trainer.step_count == 1 and len(summary) == 1, f"train_gpu --dtype bfloat16: {trainer.step_count} steps")
+    check(model.conv1.compute_dtype == torch.bfloat16 and trainer.options.remat == "stage",
+          "train_gpu --dtype bfloat16 --remat: the flags did not reach the model and the step")
+    check(launches == expected, f"train_gpu --dtype bfloat16: {launches} skinning launches, expected {expected}")
+    check(all(np.isfinite(v) for v in summary[0]["metrics"].values()), "train_gpu --dtype bfloat16: metrics")
+    check(float32_state, "train_gpu --dtype bfloat16: a parameter or an Adam moment is not float32")
+    del trainer, model, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_phase(torch, np, dev, smi, smpl):
+    """Phase 10 on synthetic inputs; returns the skinning launches of one
+    bfloat16 eval call per model and of one bfloat16 train step with
+    SMPLify."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn
+    from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
+    from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+    from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
+    from inbed_pose_estimation_tpu_torch.tools import bench_train
+    from inbed_pose_estimation_tpu_torch.train import FitsStore, build_parser, init_train_state, make_train_step
+
+    V = smpl.v_template.shape[0]
+    jreg = load_j_regressor_h36m(num_vertices=V)
+    rng = np.random.default_rng(SEED + 10)
+    eval_launches = {}
+
+    def pair(name, device, res=RES):
+        """The float32 model of `name` from the seed and a bfloat16 one with
+        its weights, with their inference functions."""
+        torch.manual_seed(SEED)
+        m32, spec = build_model(name, device=device, img_res=res)
+        m16, _ = build_model(name, device=device, img_res=res, dtype=torch.bfloat16)
+        m16.load_state_dict(m32.state_dict())
+        s = smpl if device == dev else synthetic_smpl_model(SEED, device=device)
+        return spec, [make_inference_fn(m, spec, s, jreg, num_cas_iters=NUM_CAS_ITERS, final_recon=False,
+                                        device=device) for m in (m32, m16)]
+
+    def inputs_for(spec, batch, res):
+        if spec.input_mode == "pm_contact":
+            return [torch.from_numpy(x).to(dev) for x in bar_inputs(np, spec, batch, res, rng)]
+        return [torch.from_numpy(rng.normal(0, 1, (batch, MODALITY_CHANNELS[m], res, res)).astype(np.float32))
+                .to(dev) for m in spec.modalities]
+
+    def distance(a, b):
+        """bfloat16 output `a` from float32 output `b`: keypoints in mm (mean
+        and max over joints), rotmat, betas and cam (max abs)."""
+        mm = 1e3 * (a["keypoints_3d_17"] - b["keypoints_3d_17"]).norm(dim=-1)
+        d = {k: (a[k] - b[k]).abs().max().item() for k in ("rotmat", "betas", "cam")}
+        return dict(d, keypoints_mm_mean=mm.mean().item(), keypoints_mm_max=mm.max().item())
+
+    def finite(out):
+        return all(bool(torch.isfinite(out[k]).all()) for k in ("rotmat", "betas", "cam", "vertices",
+                                                                 "keypoints_3d_17"))
+
+    # cashmrV2 at batch 32: images/s in both dtypes, the distance, the top
+    # device kernels of one bfloat16 call.
+    spec, (infer32, infer16) = pair(MODEL, dev)
+    inputs = inputs_for(spec, BATCH, RES)
+    readings = {}
+    for dtype, infer in (("float32", infer32), ("bfloat16", infer16)):
+        for _ in range(3):
+            infer(inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(TIMED_CALLS):
+            out = infer(inputs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(sk.launches == TIMED_CALLS, f"{MODEL} {dtype} eval: {sk.launches} skinning launches in "
+                                          f"{TIMED_CALLS} calls")
+        check(finite(out) and all(out[k].dtype == torch.float32 for k in ("rotmat", "betas", "cam", "vertices")),
+              f"{MODEL} {dtype} eval: non-finite or non-float32 outputs")
+        readings[dtype] = {"images_per_s": BATCH * TIMED_CALLS / seconds, "ms_per_batch": 1e3 * seconds / TIMED_CALLS,
+                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    sk.launches = 0
+    out16 = infer16(inputs)
+    eval_launches[MODEL] = sk.launches
+    dist = distance(out16, infer32(inputs))
+    check(eval_launches[MODEL] == 1, f"{MODEL} bfloat16 eval: {eval_launches[MODEL]} skinning launches, expected 1")
+    check(dist["rotmat"] > 0, f"{MODEL}: the bfloat16 predictions equal float32's")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        infer16(inputs)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
+    layout_ms = sum(ms for name, ms in by_kernel.items() if "nchwToNhwc" in name or "nhwcToNchw" in name)
+    log("bf16_eval", model=MODEL, batch=BATCH, res=RES, num_cas_iters=NUM_CAS_ITERS, calls=TIMED_CALLS,
+        readings=readings, speedup=readings["float32"]["ms_per_batch"] / readings["bfloat16"]["ms_per_batch"],
+        launches={"skinning": eval_launches[MODEL]}, bf16_vs_f32=dist, kernel_ms=sum(by_kernel.values()),
+        layout_transform_ms=layout_ms, top_kernels_ms=[[n[:90], ms] for n, ms in
+                                                       sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]],
+        card=smi)
+    del infer32, infer16, inputs, out16, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bench_gpu.py, as a user runs it.
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.join(root, "bench_gpu.py")], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    lines = run.stdout.strip().splitlines()
+    check(run.returncode == 0 and lines, f"bench_gpu.py exited {run.returncode}: {run.stderr[-2000:]}")
+    line = json.loads(lines[-1])
+    log("bench_gpu", line=line, seconds=time.perf_counter() - t0, card=smi)
+    check(set(line) == {"metric", "value", "unit", "vs_baseline"} and line["value"] > 0,
+          f"bench_gpu.py printed {line}")
+
+    # One bfloat16 batch of each family's flagship.
+    for name, expected in BF16_EVAL_LAUNCHES.items():
+        spec, (infer32, infer16) = pair(name, dev)
+        inputs = inputs_for(spec, BATCH, RES)
+        sk.launches = 0
+        out16 = infer16(inputs)
+        torch.cuda.synchronize()
+        eval_launches[name] = sk.launches
+        out32 = infer32(inputs)
+        dist = distance(out16, out32)
+        log("bf16_family_eval", model=name, batch=BATCH, res=RES, launches={"skinning": eval_launches[name]},
+            expected=expected, bf16_vs_f32=dist,
+            recon_dtypes={k: str(v.dtype) for k, v in out16["recon"].items()}, card=smi)
+        check(eval_launches[name] == expected, f"{name} bfloat16 eval: {eval_launches[name]} skinning launches, "
+                                               f"expected {expected}")
+        check(finite(out16), f"{name} bfloat16 eval: non-finite outputs")
+        check(dist["rotmat"] > 0, f"{name}: the bfloat16 predictions equal float32's")
+        del infer32, infer16, inputs, out16, out32
+        torch.cuda.empty_cache()
+
+    # The bfloat16 forward on the card against the CPU at RES 64, batch 2.
+    spec, (cpu32, cpu16) = pair(MODEL, "cpu", 64)
+    _, (_, card16) = pair(MODEL, dev, 64)
+    small = [x.cpu().numpy() for x in inputs_for(spec, 2, 64)]
+    want, cpu_bf16, card = cpu32(small), cpu16(small), card16(small)
+    ratios = {}
+    for k, floor in BF16_FLOORS.items():
+        d_card = (card[k].cpu() - want[k]).abs().max().item()
+        d_cpu = (cpu_bf16[k] - want[k]).abs().max().item()
+        ratios[k] = {"card_bf16_vs_cpu_f32": d_card, "cpu_bf16_vs_cpu_f32": d_cpu,
+                     "limit": BF16_RATIO * d_cpu + floor}
+    log("bf16_card_vs_cpu", model=MODEL, res=64, batch=2, ratio=BF16_RATIO, readings=ratios, card=smi)
+    for k, r in ratios.items():
+        check(r["card_bf16_vs_cpu_f32"] <= r["limit"], f"bfloat16 card vs CPU: {k} reads "
+                                                       f"{r['card_bf16_vs_cpu_f32']:.3g}, limit {r['limit']:.3g}")
+    del cpu32, cpu16, card16
+
+    # The train step at batch 64 without SMPLify, each dtype x each remat.
+    gc.collect()
+    torch.cuda.empty_cache()
+    prior = synthetic_gmm_prior(device=dev)
+    losses, train = {}, {}
+
+    def stepper(dtype, remat, smplify):
+        args = TRAIN_ARGS if smplify else [a for a in TRAIN_ARGS if a != "--run_smplify"]
+        options = build_parser().parse_args(args + ["--dtype", dtype] + (["--remat", remat] if remat else []))
+        torch.manual_seed(SEED + 1)
+        model, spec = build_model(MODEL, device=dev, dtype=getattr(torch, dtype), remat_decoder=remat == "decoder")
+        state = init_train_state(model, options, FitsStore("synthetic", FITS_ROWS, device=dev).array, seed=SEED,
+                                 device=dev)
+        step = make_train_step(model, spec, smpl, prior, options, device=dev)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in train_batch(np, spec, options.batch_size, options.img_res, FITS_ROWS, SEED).items()}
+        return options, state, step, batch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for dtype in ("float32", "bfloat16"):
+        for remat in REMAT_CASES:
+            options, state, step, batch = stepper(dtype, remat, smplify=False)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, metrics = step(state, batch)
+            run_losses = [metrics["loss"]]
+            start.record()
+            for _ in range(BF16_TIMED_STEPS):
+                state, metrics = step(state, batch)
+                run_losses.append(metrics["loss"])
+            end.record()
+            torch.cuda.synchronize()
+            key = f"{dtype}/{remat or 'none'}"
+            losses[key] = [v.item() for v in run_losses]
+            train[key] = {"ms_per_step": start.elapsed_time(end) / BF16_TIMED_STEPS,
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+            check(all(np.isfinite(losses[key])), f"train step {key}: a non-finite loss")
+            del options, state, step, batch, metrics, run_losses
+            gc.collect()
+            torch.cuda.empty_cache()
+    f32, bf16 = np.array(losses["float32/none"]), np.array(losses["bfloat16/none"])
+    bf16_rel = np.abs(bf16 - f32) / np.abs(f32)
+    remat_rel = {k: float(np.max(np.abs(np.array(v) - np.array(losses[k.split("/")[0] + "/none"]))
+                                 / np.abs(losses[k.split("/")[0] + "/none"])))
+                 for k, v in losses.items() if not k.endswith("/none")}
+    log("bf16_remat_train", model=MODEL, batch=build_parser().parse_args(TRAIN_ARGS).batch_size, res=RES, smplify=False, timed_steps=BF16_TIMED_STEPS,
+        readings=train, losses=losses, bf16_vs_f32_loss_rel=bf16_rel.tolist(), remat_vs_none_loss_rel=remat_rel,
+        card=smi)
+    check(float(bf16_rel.max()) < BF16_LOSS_REL, f"bfloat16 loss off float32's by {bf16_rel.max():.3g}")
+    check(all(v[0] == losses[k.split("/")[0] + "/none"][0] for k, v in losses.items()),
+          "a remat step's first loss differs from the step's without remat")
+    check(all(v <= REMAT_LOSS_REL for v in remat_rel.values()), f"a remat step's loss differs: {remat_rel}")
+
+    # One bfloat16 step with SMPLify (N = 100).
+    options, state, step, batch = stepper("bfloat16", False, smplify=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.launches = 0
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    launches, expected = sk.launches, 6 + 2 * options.num_smplify_iters
+    start.record()
+    state, metrics = step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    log("bf16_train_step", model=MODEL, batch=options.batch_size, res=RES, num_smplify_iters=options.num_smplify_iters,
+        launches={"skinning": launches}, expected=expected, ms_per_step=start.elapsed_time(end),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, metrics={k: v.item() for k, v in metrics.items()},
+        card=smi)
+    check(launches == expected, f"bfloat16 train step: {launches} skinning launches, expected {expected}")
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()), "bfloat16 train step: a non-finite metric")
+    del options, state, step, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # tools/bench_train.py at its defaults.
+    t0 = time.perf_counter()
+    result = bench_train.main([])
+    log("bench_train", result=result, seconds=time.perf_counter() - t0, card=smi)
+    check(result["value"] > 0 and np.isfinite(result["loss"]), f"bench_train printed {result}")
+    return eval_launches, launches
+
+
 def main() -> int:
     import torch
 
@@ -1657,15 +1958,18 @@ def main() -> int:
     launches_eval_driver, eval_driver_batches, launches_families_eval_driver, launches_bar_eval_driver = (
         eval_driver_phase(torch, np, dev, smi, cuda_ms))
 
-    # 7. train driver (with phase 8's and 9's train CLI runs on its tree)
+    # 7. train driver (with phase 8's, 9's and 10's train CLI runs on its tree)
     (launches_train_driver_step, launches_train_driver, train_driver_steps, launches_families_train_driver,
-     launches_bar_train_driver) = train_driver_phase(torch, np, dev, smi)
+     launches_bar_train_driver, launches_bf16_train_driver) = train_driver_phase(torch, np, dev, smi)
 
     # 8. families
     launches_families_eval, launches_families_train_step = families_phase(torch, np, dev, smi, smpl, cuda_ms)
 
     # 9. Bodies-At-Rest
     launches_bar_eval, launches_bar_train_step = bar_phase(torch, np, dev, smi, smpl)
+
+    # 10. bfloat16 and rematerialization
+    launches_bf16_eval, launches_bf16_train_step = bf16_phase(torch, np, dev, smi, smpl)
 
     kernels = [{
         "name": "skinning", "route": "cuda",
@@ -1688,6 +1992,8 @@ def main() -> int:
         "launches_families_train_driver_step": launches_families_train_driver,
         "launches_bar_eval": launches_bar_eval, "launches_bar_train_step": launches_bar_train_step,
         "launches_bar_eval_driver": launches_bar_eval_driver, "launches_bar_train_driver": launches_bar_train_driver,
+        "launches_bf16_eval": launches_bf16_eval, "launches_bf16_train_step": launches_bf16_train_step,
+        "launches_bf16_train_driver_step": launches_bf16_train_driver,
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

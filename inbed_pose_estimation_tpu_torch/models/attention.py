@@ -9,7 +9,9 @@ modality's values go through every modality's map and are summed:
     out_x = x + sum_i gamma_i * (att_i @ value(x))
 
 with per-modality gains `gamma` that start at zero, so the module is the
-identity at its initialization.
+identity at its initialization.  In a bfloat16 model the attention runs
+in bfloat16 and the sums, as in JAX, in float32: the fused maps leave the
+module in float32.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from .layers import Conv2d
 
 
 class CrossAttention(nn.Module):
@@ -31,9 +35,9 @@ class CrossAttention(nn.Module):
 
     def __init__(self, channels: int, n: int):
         super().__init__()
-        self.query_conv = nn.Conv2d(channels, channels, 1)
-        self.key_conv = nn.Conv2d(channels, channels, 1)
-        self.value_conv = nn.Conv2d(channels, channels, 1)
+        self.query_conv = Conv2d(channels, channels, 1)
+        self.key_conv = Conv2d(channels, channels, 1)
+        self.value_conv = Conv2d(channels, channels, 1)
         self.gamma = nn.Parameter(torch.zeros(n))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -50,6 +54,9 @@ class CrossAttention(nn.Module):
             v = tokens(self.value_conv(x))
             acc = tokens(x)
             for i, att in enumerate(atts):
-                acc = acc + self.gamma[i] * (att @ v)
+                # In a bfloat16 model the product is cast to gamma's float32
+                # first: JAX promotes bfloat16 x float32 to float32, where a
+                # 0-dim float32 tensor would leave it bfloat16 here.
+                acc = acc + self.gamma[i] * (att @ v).to(self.gamma.dtype)
             outs.append(acc.transpose(1, 2).reshape(B, C, H, W))
         return torch.cat(outs, dim=1)

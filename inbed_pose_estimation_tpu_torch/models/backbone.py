@@ -1,11 +1,19 @@
 """ResNet-50 feature trunk, NCHW, with the reference's parameter names,
-and the BatchNorm2d that the port's models use."""
+and the BatchNorm2d that the port's models use.
+
+In a bfloat16 model (`layers.set_compute_dtype`) the convolutions compute in
+bfloat16 and BatchNorm2d takes their bfloat16 output with its float32
+weights and statistics: it normalizes in float32 and returns bfloat16, as
+flax's `BatchNorm(dtype=)` does.
+"""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import Conv2d, recomputing
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -22,12 +30,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     is written into `running_var` afterwards, without another pass over
     the activations.  (autograd keeps the copy it was given, so writing
     `running_var` in place does not disturb the backward pass.)  The
-    state-dict names are torch's.
+    state-dict names are torch's.  In the backward pass's recompute of a
+    `layers.checkpoint`ed call it normalizes with the batch statistics and
+    updates nothing.
     """
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if recomputing():  # statistics to update that are thrown away
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(), self.weight, self.bias,
+                                True, self.momentum, self.eps)
         n = x.numel() // x.shape[1]
         self.num_batches_tracked.add_(1)
         running_var = self.running_var.clone()
@@ -42,16 +55,16 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, project: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = None
         if project:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
+                Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
                 BatchNorm2d(planes * 4),
             )
 
@@ -81,7 +94,7 @@ class ResNet50Trunk(nn.Module):
 
     def __init__(self, in_channels: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.layer1 = _stage(64, 64, 3, 1)
         self.layer2 = _stage(256, 128, 4, 2)

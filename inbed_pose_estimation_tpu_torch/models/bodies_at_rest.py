@@ -36,6 +36,7 @@ from torch import nn
 from ..geometry import rot6d_to_rotmat
 from .heads import NPOSE, dropout
 from .hmr import HMROutput
+from .layers import Conv2d, Linear
 
 WIDTHS = (192, 192, 384, 384)
 
@@ -58,10 +59,10 @@ class _TanhStack(nn.Sequential):
     def __init__(self, in_channels: int):
         c0, c1, c2, c3 = WIDTHS
         super().__init__(
-            nn.Conv2d(in_channels, c0, 7, stride=2, padding=3), nn.Tanh(), _Dropout(), nn.MaxPool2d(3, stride=2),
-            nn.Conv2d(c0, c1, 3, stride=2), nn.Tanh(), _Dropout(),
-            nn.Conv2d(c1, c2, 3), nn.Tanh(), _Dropout(),
-            nn.Conv2d(c2, c3, 3, stride=2), nn.Tanh(), _Dropout(),
+            Conv2d(in_channels, c0, 7, stride=2, padding=3), nn.Tanh(), _Dropout(), nn.MaxPool2d(3, stride=2),
+            Conv2d(c0, c1, 3, stride=2), nn.Tanh(), _Dropout(),
+            Conv2d(c1, c2, 3), nn.Tanh(), _Dropout(),
+            Conv2d(c2, c3, 3, stride=2), nn.Tanh(), _Dropout(),
         )
 
     def forward(self, x, rate: float = 0.0, generator=None):
@@ -83,9 +84,9 @@ class BodiesAtRest(nn.Module):
         self.dropout_rate = dropout_rate
         for suffix, channels in (("", in_channels), ("_mode2", in_channels + 1))[:2 if with_mode2 else 1]:
             self.add_module(f"CNN_packtanh{suffix}", _TanhStack(channels))
-            self.add_module(f"CNN_fc1{suffix}", nn.Sequential(nn.Linear(WIDTHS[-1] * side * side, 1024)))
+            self.add_module(f"CNN_fc1{suffix}", nn.Sequential(Linear(WIDTHS[-1] * side * side, 1024)))
             for name, width in (("decpose", NPOSE), ("decshape", 10), ("deccam", 3)):
-                layer = nn.Linear(1024, width)
+                layer = Linear(1024, width)
                 nn.init.xavier_uniform_(layer.weight, gain=0.01)
                 self.add_module(f"{name}{suffix}", layer)
 
@@ -104,5 +105,7 @@ class BodiesAtRest(nn.Module):
         pose, shape, cam = (getattr(self, f"{name}{suffix}")(scores) for name in ("decpose", "decshape", "deccam"))
         if mode == "1":
             pose, shape, cam = pose.detach(), shape.detach(), cam.detach()
+        out_dtype = self.decpose.weight.dtype  # float32 outputs from bfloat16 compute, as JAX casts them
+        pose, shape, cam = pose.to(out_dtype), shape.to(out_dtype), cam.to(out_dtype)
         rotmat = rot6d_to_rotmat(pose).reshape(x.shape[0], 24, 3, 3)
         return HMROutput(rotmat=rotmat, betas=shape, cam=cam, pose6d=pose, recon={})

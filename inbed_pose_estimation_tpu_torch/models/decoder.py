@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from .backbone import BatchNorm2d
+from .layers import Conv2d
 
 
 class ResBlock(nn.Module):
@@ -19,10 +20,10 @@ class ResBlock(nn.Module):
     def __init__(self, n: int):
         super().__init__()
         self.body = nn.Sequential(
-            nn.Conv2d(n, n, 3, padding=1, bias=False),
+            Conv2d(n, n, 3, padding=1, bias=False),
             BatchNorm2d(n),
             nn.ReLU(inplace=True),
-            nn.Conv2d(n, n, 3, padding=1, bias=False),
+            Conv2d(n, n, 3, padding=1, bias=False),
             BatchNorm2d(n),
         )
 
@@ -33,14 +34,14 @@ class ResBlock(nn.Module):
 def upsampler(n: int) -> nn.Sequential:
     """conv3 (n -> 4n) + PixelShuffle(2) + BN(n): doubles the resolution."""
     return nn.Sequential(
-        nn.Conv2d(n, 4 * n, 3, padding=1, bias=False),
+        Conv2d(n, 4 * n, 3, padding=1, bias=False),
         nn.PixelShuffle(2),
         BatchNorm2d(n),
     )
 
 
 def _level(cin: int, n: int) -> nn.Sequential:
-    return nn.Sequential(nn.Conv2d(cin, n, 1, bias=False), ResBlock(n), upsampler(n))
+    return nn.Sequential(Conv2d(cin, n, 1, bias=False), ResBlock(n), upsampler(n))
 
 
 class Reconstruct(nn.Module):
@@ -59,11 +60,11 @@ class Reconstruct(nn.Module):
         self.decDepth3 = _level(512 * 2, 256)
         self.decDepth4 = _level(256 * 2, 128)
         self.decDepth = nn.Sequential(
-            nn.Conv2d(128 + 64, 128, 1, bias=False),
+            Conv2d(128 + 64, 128, 1, bias=False),
             ResBlock(128),
             ResBlock(128),
             upsampler(128),
-            nn.Conv2d(128, 1, 3, padding=1, bias=False),
+            Conv2d(128, 1, 3, padding=1, bias=False),
         )
 
     def forward(self, x0, x1, x2, x3, x4):

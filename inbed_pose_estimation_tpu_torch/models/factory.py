@@ -17,6 +17,7 @@ from ..smpl.assets import mean_params
 from .bodies_at_rest import BodiesAtRest
 from .fusion import FrozenGuidedFusion, TwoStageFusion
 from .hmr import MODALITY_CHANNELS, HMRCore, MultiTrunkCore
+from .layers import set_compute_dtype
 
 MODALITY_SETS = {
     "rgb": ("img",),
@@ -104,11 +105,17 @@ def get_spec(name: str) -> ModelSpec:
 
 
 def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str | torch.device = "cuda",
-                dropout_rate: Optional[float] = None, img_res: int = IMG_RES):
+                dropout_rate: Optional[float] = None, img_res: int = IMG_RES, dtype: torch.dtype = torch.float32,
+                remat_decoder: bool = False):
     """Build a registered model on `device`, in eval mode.  `dropout_rate`
     is the rate of its dropout in training mode; None keeps the family's:
     0.5 in the IEF heads, 0.1 in Bodies-At-Rest's tanh stack.  `img_res`
     sizes Bodies-At-Rest's fc1 (the other families pool to a fixed width).
+    `dtype` is the compute dtype (float32 or bfloat16; the parameters are
+    float32 either way, `layers.set_compute_dtype`).  `remat_decoder`
+    checkpoints the decoders of the concat and multi families (`--remat
+    decoder`); the fusion family and Bodies-At-Rest take it and ignore it,
+    as in JAX.
 
     Returns (module, spec):
       concat: HMRCore on the channel-concatenated modalities, with the
@@ -125,23 +132,27 @@ def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str |
     """
     spec = get_spec(name)
     dev = resolve_device(device)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype} is not float32 or bfloat16")
     if spec.input_mode == "pm_contact":
         module = BodiesAtRest(BAR_CHANNELS[name], img_res, with_mode2=name == "bodiesAtRest4mod",
                               dropout_rate=0.1 if dropout_rate is None else dropout_rate)
-        return module.to(dev).eval(), spec
+        return set_compute_dtype(module, dtype).to(dev).eval(), spec
     rate = 0.5 if dropout_rate is None else dropout_rate
     mp = mean_params(smpl_mean_params)
     means = (mp["pose"], mp["shape"], mp["cam"])
     if spec.input_mode == "concat":
-        module = HMRCore(spec.in_channels, *means, recon_heads=spec.recon_heads, dropout_rate=rate)
+        module = HMRCore(spec.in_channels, *means, recon_heads=spec.recon_heads, dropout_rate=rate,
+                         remat_decoder=remat_decoder)
     elif spec.input_mode == "multi":
         module = MultiTrunkCore(spec.modalities, *means, recon_heads=spec.recon_heads,
                                 cross_attention=name in ("featatt_cashmr", "ir_depth_featatt_cashmrV2"),
-                                skip_trunk=min(2, len(spec.modalities) - 1), dropout_rate=rate)
+                                skip_trunk=min(2, len(spec.modalities) - 1), dropout_rate=rate,
+                                remat_decoder=remat_decoder)
     elif name in FROZEN_GUIDED:
         module = FrozenGuidedFusion(*means, with_rgb=name == "ir_depth_pm_rgb_fusion", dropout_rate=rate)
     else:
         heads, slots = RECOVER[name]
         module = TwoStageFusion([MODALITY_CHANNELS[m] for m in spec.modalities], *means, recover_heads=heads,
                                 recover_slots=slots, dropout_rate=rate)
-    return module.to(dev).eval(), spec
+    return set_compute_dtype(module, dtype).to(dev).eval(), spec

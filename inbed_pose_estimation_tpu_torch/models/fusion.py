@@ -26,6 +26,11 @@ upsampler's convs), dec{IR,Depth,PM}2 (strided conv, ResBlock) and
 dec{IR,Depth,PM}3 (conv, ResBlock, PixelShuffle, projection).  The frozen
 pipelines nest two such trees as guide.* and main.*; `weights.flax_path`
 maps them onto the flax tree's guide/ and main/.
+
+In a bfloat16 model the stages' outputs are float32 (HMRCore casts them),
+so the body mask is made in float32 and the skinning kernel takes float32;
+the recovered images leave their decoders in bfloat16, as in JAX, and the
+inputs of stage 2 are concatenated in float32.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ..ops.mask_raster import render_body_mask
 from ..smpl.model import SMPLModel, lbs
 from .decoder import ResBlock
 from .hmr import HMRCore, HMROutput
+from .layers import Conv2d
 
 # Recovered modality -> the infix of its reference parameter names.
 HEAD_NAME = {"ir": "IR", "depth": "Depth", "pm": "PM"}
@@ -55,7 +61,7 @@ def _feat_up() -> nn.Sequential:
     """x4 (2048 x 7^2) -> 128 x 112^2: four conv3x3 (-> 512) + PixelShuffle(2)."""
     layers = []
     for i in range(4):
-        layers += [nn.Conv2d(2048 if i == 0 else 128, 128 * 4, 3, padding=1), nn.PixelShuffle(2)]
+        layers += [Conv2d(2048 if i == 0 else 128, 128 * 4, 3, padding=1), nn.PixelShuffle(2)]
     return nn.Sequential(*layers)
 
 
@@ -78,10 +84,10 @@ class TwoStageFusion(nn.Module):
         for head, slot in self.slot_of.items():
             name = HEAD_NAME[head]
             self.add_module(f"dec{name}2", nn.Sequential(
-                nn.Conv2d(slot_channels[slot], 64, 3, stride=2, padding=1), ResBlock(64)))
+                Conv2d(slot_channels[slot], 64, 3, stride=2, padding=1), ResBlock(64)))
             self.add_module(f"dec{name}3", nn.Sequential(
-                nn.Conv2d(128 + 64 + 64, 64 * 4, 3, padding=1), ResBlock(256), nn.PixelShuffle(2),
-                nn.Conv2d(64, 1, 3, padding=1)))
+                Conv2d(128 + 64 + 64, 64 * 4, 3, padding=1), ResBlock(256), nn.PixelShuffle(2),
+                Conv2d(64, 1, 3, padding=1)))
 
     def forward(self, inputs, smpl_model: SMPLModel, generator=None, init=None) -> FusionOutput:
         """inputs: one [B, C, H, W] tensor per slot.  `init` (pose6d, betas,

@@ -11,28 +11,32 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .layers import Linear
+
 NPOSE = 24 * 6
 
 
 def add_ief_layers(module: nn.Module, feat_dim: int = 2048) -> None:
     """Register fc1, fc2, decpose, decshape and deccam on `module`."""
-    module.fc1 = nn.Linear(feat_dim + NPOSE + 13, 1024)
-    module.fc2 = nn.Linear(1024, 1024)
-    module.decpose = nn.Linear(1024, NPOSE)
-    module.decshape = nn.Linear(1024, 10)
-    module.deccam = nn.Linear(1024, 3)
+    module.fc1 = Linear(feat_dim + NPOSE + 13, 1024)
+    module.fc2 = Linear(1024, 1024)
+    module.decpose = Linear(1024, NPOSE)
+    module.decshape = Linear(1024, 10)
+    module.deccam = Linear(1024, 3)
     for layer in (module.decpose, module.decshape, module.deccam):
         nn.init.xavier_uniform_(layer.weight, gain=0.01)
 
 
 def dropout(x, rate: float, generator=None):
     """Inverted dropout with the mask drawn from `generator` (torch's
-    default generator when None): x / (1 - rate) where kept, else 0."""
+    default generator when None): x / (1 - rate) where kept, else 0.  The
+    mask is drawn in float32 whatever x's type, so a bfloat16 model draws
+    the masks of a float32 one."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
-    return x * mask / keep
+    mask = torch.empty_like(x, dtype=torch.float32).bernoulli_(keep, generator=generator)
+    return x * mask.to(x.dtype) / keep
 
 
 def ief_regress(module: nn.Module, xf, pose, shape, cam, n_iter: int = 3, dropout_rate: float = 0.5,

@@ -8,6 +8,14 @@ ir_depth_featatt_cashmrV2.  Parameters carry the reference state-dict names
 (conv1, bn1, layer1..4, fc1, fc2, decpose, decshape, deccam,
 Reconstruct_<head>.decDepth*, feat_extraction_<mod>.*, cross_att.*), which
 `weights.flax_path` maps onto the JAX package's flax tree.
+
+In a bfloat16 model (`layers.set_compute_dtype`) the trunk, decoders and
+IEF compute in bfloat16 from the mean parameters cast to bfloat16, and the
+outputs are cast to the parameters' float32 where JAX casts them: pose6d,
+betas, cam and the recovered images (rotmat is computed from the float32
+pose6d); the pyramid stays bfloat16.  With `remat_decoder` each decoder
+call is checkpointed (`layers.checkpoint`), JAX's `nn.remat(Reconstruct)`:
+the parameter names do not change.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from .attention import CrossAttention
 from .backbone import ResNet50Trunk
 from .decoder import Reconstruct
 from .heads import add_ief_layers, ief_regress
+from .layers import checkpoint
 
 # Batch key of a modality -> its name in the reference's parameter names.
 TRUNK_NAME = {"img": "rgb", "ir_img": "ir", "depth_img": "depth", "pm_img": "pm"}
@@ -44,15 +53,31 @@ def _register_mean_params(module: nn.Module, mean_pose, mean_shape, mean_cam) ->
         module.register_buffer(name, torch.as_tensor(value, dtype=torch.float32).reshape(1, -1))
 
 
+def _decode(module: nn.Module, pyramid) -> dict:
+    """Each of `module`'s decoders on the (x0..x4) pyramid, checkpointed
+    with `remat_decoder` (a decoder draws no dropout)."""
+    recon = {}
+    for head in module.recon_heads:
+        dec = getattr(module, f"Reconstruct_{head}")
+        recon[head] = checkpoint(dec, *pyramid) if module.remat_decoder else dec(*pyramid)
+    return recon
+
+
 def _regress(module: nn.Module, x4, recon, generator, init=None, pyramid=None) -> HMROutput:
     """Pool x4, run `module`'s IEF from `init` (pose6d, betas, cam) or from
-    its mean parameters, and wrap the result."""
+    its mean parameters (in the compute dtype, as JAX casts them), and wrap
+    the result, cast to the parameters' type."""
     batch = x4.shape[0]
     if init is None:
         init = (module.init_pose.expand(batch, -1), module.init_shape.expand(batch, -1),
                 module.init_cam.expand(batch, -1))
+        if module.compute_dtype is not None:
+            init = tuple(t.to(module.compute_dtype) for t in init)
     xf = x4.mean(dim=(2, 3))  # global average pool == AvgPool2d(7) on 7x7 maps
     pose6d, betas, cam = ief_regress(module, xf, *init, module.n_iter, module.dropout_rate, generator)
+    out_dtype = module.init_pose.dtype
+    pose6d, betas, cam = pose6d.to(out_dtype), betas.to(out_dtype), cam.to(out_dtype)
+    recon = {k: v.to(out_dtype) for k, v in recon.items()}
     rotmat = rot6d_to_rotmat(pose6d).reshape(batch, 24, 3, 3)
     return HMROutput(rotmat=rotmat, betas=betas, cam=cam, pose6d=pose6d, recon=recon, pyramid=pyramid)
 
@@ -65,8 +90,11 @@ class HMRCore(ResNet50Trunk):
     head drops out at `dropout_rate`.
     """
 
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, in_channels: int, mean_pose, mean_shape, mean_cam,
-                 recon_heads: Sequence[str] = (), n_iter: int = 3, dropout_rate: float = 0.5):
+                 recon_heads: Sequence[str] = (), n_iter: int = 3, dropout_rate: float = 0.5,
+                 remat_decoder: bool = False):
         super().__init__(in_channels)
         add_ief_layers(self, 2048)
         self.recon_heads = tuple(recon_heads)
@@ -74,6 +102,7 @@ class HMRCore(ResNet50Trunk):
             self.add_module(f"Reconstruct_{head}", Reconstruct())
         self.n_iter = n_iter
         self.dropout_rate = dropout_rate
+        self.remat_decoder = remat_decoder
         _register_mean_params(self, mean_pose, mean_shape, mean_cam)
 
     def forward(self, x, compute_recon: bool = True, generator=None, init=None,
@@ -88,12 +117,9 @@ class HMRCore(ResNet50Trunk):
         head's dropout masks come from `generator` (a torch.Generator on
         x's device; torch's default generator when None).
         """
-        x0, x1, x2, x3, x4 = pyramid = self.pyramid(x)
-        recon = {}
-        if compute_recon:
-            for head in self.recon_heads:
-                recon[head] = getattr(self, f"Reconstruct_{head}")(x0, x1, x2, x3, x4)
-        return _regress(self, x4, recon, generator, init, pyramid if return_pyramid else None)
+        pyramid = self.pyramid(x)
+        recon = _decode(self, pyramid) if compute_recon else {}
+        return _regress(self, pyramid[4], recon, generator, init, pyramid if return_pyramid else None)
 
 
 class MultiTrunkCore(nn.Module):
@@ -111,9 +137,11 @@ class MultiTrunkCore(nn.Module):
     reference's decoder expected fused skips too and would not have run.
     """
 
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, modalities: Sequence[str], mean_pose, mean_shape, mean_cam,
                  recon_heads: Sequence[str] = (), cross_attention: bool = False, skip_trunk: int = 2,
-                 n_iter: int = 3, dropout_rate: float = 0.5):
+                 n_iter: int = 3, dropout_rate: float = 0.5, remat_decoder: bool = False):
         super().__init__()
         self.trunk_names = tuple(TRUNK_NAME[m] for m in modalities)
         n = len(self.trunk_names)
@@ -127,6 +155,7 @@ class MultiTrunkCore(nn.Module):
         add_ief_layers(self, 2048 * n)
         self.n_iter = n_iter
         self.dropout_rate = dropout_rate
+        self.remat_decoder = remat_decoder
         _register_mean_params(self, mean_pose, mean_shape, mean_cam)
 
     def forward(self, inputs, compute_recon: bool = True, generator=None) -> HMROutput:
@@ -137,9 +166,5 @@ class MultiTrunkCore(nn.Module):
         pyramids = [getattr(self, f"feat_extraction_{name}").pyramid(x) for name, x in zip(self.trunk_names, inputs)]
         x4s = [p[4] for p in pyramids]
         x4 = self.cross_att(x4s) if self.cross_att is not None else torch.cat(x4s, dim=1)
-        recon = {}
-        if compute_recon:
-            x0, x1, x2, x3, _ = pyramids[self.skip_trunk]
-            for head in self.recon_heads:
-                recon[head] = getattr(self, f"Reconstruct_{head}")(x0, x1, x2, x3, x4)
+        recon = _decode(self, pyramids[self.skip_trunk][:4] + (x4,)) if compute_recon else {}
         return _regress(self, x4, recon, generator)

@@ -3,9 +3,7 @@ same names and defaults, `--from_json`, the `config.json` dump, and
 `--device` (cuda by default).
 
 Options that do nothing in the JAX package do nothing here either
-(`--ngpu`, `--pin_memory`, `--mod1_epoch` outside Bodies-At-Rest).  Options
-the port does not implement stop `parse_args` with a message that names
-their ROADMAP item: `--dtype bfloat16` and `--remat`.
+(`--ngpu`, `--pin_memory`, `--mod1_epoch` outside Bodies-At-Rest).
 """
 
 from __future__ import annotations
@@ -13,13 +11,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-
-# (option, is it set to something the port lacks?, why).
-_NOT_PORTED = (
-    ("dtype", lambda v: v != "float32",
-     "--dtype bfloat16 is not ported yet: ROADMAP Queue 1 item 11 (bfloat16 and rematerialization)"),
-    ("remat", bool, "--remat is not ported yet: ROADMAP Queue 1 item 11 (bfloat16 and rematerialization)"),
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,10 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     rt = p.add_argument_group("Runtime Options")
     rt.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                    help="Model compute dtype (bfloat16 is not ported yet)")
+                    help="Model compute dtype (params, optimizer, geometry and losses stay float32)")
     rt.add_argument("--seed", type=int, default=0)
     rt.add_argument("--remat", nargs="?", const="stage", default=False, choices=["stage", "decoder"],
-                    help="Rematerialize on backward (not ported yet)")
+                    help="Recompute activations in the backward pass (memory for FLOPs): bare --remat "
+                         "(= 'stage') checkpoints whole cascade stages of the concat and multi families; "
+                         "'--remat decoder' checkpoints only their reconstruction decoders")
     rt.add_argument("--fast_preprocess", default=False, action="store_true",
                     help="Crop, resize, rotate, noise and normalize with the native C++ host kernel "
                          "(ops/native/preprocess.cc, built with g++ at first use; not bit-identical to the "
@@ -106,8 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """Parse `argv`, merge `--from_json` (every key but `name`), refuse what
-    the port does not implement, and create <log_dir>/<name>/ with its
+    """Parse `argv`, merge `--from_json` (every key but `name`), and create <log_dir>/<name>/ with its
     `tensorboard/` (the summary_dir) and `checkpoints/` directories and the
     merged `config.json`."""
     args = build_parser().parse_args(argv)
@@ -117,9 +109,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         for k, v in json_args.items():
             if k != "name":
                 setattr(args, k, v)
-    for name, unported, why in _NOT_PORTED:
-        if unported(getattr(args, name)):
-            raise SystemExit(why)
     args.log_dir = os.path.join(os.path.abspath(args.log_dir), args.name)
     args.summary_dir = os.path.join(args.log_dir, "tensorboard")
     args.checkpoint_dir = os.path.join(args.log_dir, "checkpoints")

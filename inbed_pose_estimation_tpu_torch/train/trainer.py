@@ -58,6 +58,7 @@ from ..fitting import GMMPrior, make_fitting_loss, make_smplify
 from ..geometry import estimate_translation, perspective_projection, rotmat_to_aa, weak_perspective_to_cam_t
 from ..models import cascade_apply
 from ..models.hmr import TRUNK_NAME
+from ..models.layers import checkpoint
 from ..ops.mask_raster import render_body_mask
 from ..smpl.model import SMPLModel, smpl_forward
 from ..utils.profiling import StepTimer
@@ -138,6 +139,14 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
     `bar_mode` is Bodies-At-Rest's mode: "0" (with the body-mask term) or
     "1" (the step after `--mod1_epoch`).  After a step each trainable
     parameter's `.grad` holds the gradient that Adam took.
+
+    `options.remat` "stage" (or True) recomputes each cascade stage of the
+    concat and multi families in the backward pass (`layers.checkpoint`:
+    the same dropout masks, the running statistics updated once), which
+    changes no number of the step; the fusion family and Bodies-At-Rest
+    ignore it, as in JAX.  The model's compute dtype is its own
+    (`build_model(dtype=)`); the geometry, SMPLify and the losses run in
+    the parameters' float32.
     """
     dev = resolve_device(device)
     if bar_mode not in ("0", "1"):
@@ -149,6 +158,10 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
     focal = constants.FOCAL_LENGTH
     num_cas = int(options.num_cas_iters) if spec.cascade else 1
     run_smplify = bool(options.run_smplify)
+    # --remat (stage) checkpoints each cascade stage of the concat and multi
+    # families; --remat decoder is the model's own (build_model's
+    # remat_decoder) and needs nothing here.
+    remat_stages = getattr(options, "remat", False) in (True, "stage") and spec.input_mode in ("concat", "multi")
     fitting_loss_fn = make_fitting_loss(smpl_model, prior, focal)
     smplify_fn = make_smplify(smpl_model, prior, step_size=1e-2, num_iters=int(options.num_smplify_iters),
                               focal_length=focal)
@@ -194,7 +207,11 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
         else:
             def apply_fn(mods, **kw):
                 x = torch.cat(list(mods), dim=1) if spec.input_mode == "concat" else tuple(mods)
-                return model(x, generator=generator, **kw)
+
+                def stage(x):
+                    return model(x, generator=generator, **kw)
+
+                return checkpoint(stage, x, generator=generator) if remat_stages else stage(x)
 
             stage_outs = cascade_apply(apply_fn, inputs, num_cas, feed_map=spec.cascade_feed_map)
         final = stage_outs[-1]

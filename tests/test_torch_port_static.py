@@ -34,7 +34,7 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT_DIR.rglob("*.py")) + [REPO / n for n in ("chip_smoke.py", "eval_gpu.py",
-                                                                                       "train_gpu.py")],
+                                                                                       "train_gpu.py", "bench_gpu.py")],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))

@@ -4,6 +4,7 @@ from optax, against the JAX package on the CPU on the same seeded inputs
 and weights (RES 64, batch 2)."""
 
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -166,19 +167,18 @@ def test_options_match_jax():
 
 @pytest.mark.parametrize("arg", ["--dtype=bfloat16", "--remat", "--crop_cache=x", "--fast_preprocess"])
 def test_options_reject_what_the_port_does_not_implement(arg, tmp_path):
-    """bfloat16 and --remat stop parse_args before anything is written;
-    --crop_cache and --fast_preprocess are ported and pass through, as do
-    the Bodies-At-Rest names."""
+    """Every option is ported now and passes through parse_args into
+    config.json: bfloat16, --remat (bare: "stage"), --crop_cache and
+    --fast_preprocess, with the Bodies-At-Rest names."""
     argv = ["--name", "x", "--log_dir", str(tmp_path), arg]
-    if arg.startswith(("--crop_cache", "--fast_preprocess")):
-        args = parse_args(argv + ["--model", "bodiesAtRest4mod"])
-        assert (args.crop_cache, args.fast_preprocess, args.model) == (
-            "x" if arg.startswith("--crop_cache") else None, arg == "--fast_preprocess", "bodiesAtRest4mod")
-        assert (tmp_path / "x" / "config.json").exists()
-        return
-    with pytest.raises(SystemExit, match="is not ported yet: ROADMAP"):
-        parse_args(argv)
-    assert not (tmp_path / "x").exists()
+    args = parse_args(argv + ["--model", "bodiesAtRest4mod"])
+    want = {"dtype": "bfloat16" if arg == "--dtype=bfloat16" else "float32",
+            "remat": "stage" if arg == "--remat" else False,
+            "crop_cache": "x" if arg.startswith("--crop_cache") else None,
+            "fast_preprocess": arg == "--fast_preprocess", "model": "bodiesAtRest4mod"}
+    assert {k: getattr(args, k) for k in want} == want
+    config = json.loads((tmp_path / "x" / "config.json").read_text())
+    assert {k: config[k] for k in want} == want
 
 
 def test_batchnorm_running_var_is_biased():

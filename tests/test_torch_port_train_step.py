@@ -257,10 +257,13 @@ def test_step_rejects_other_input_modes():
 
 
 @pytest.mark.slow
-def test_step_with_smplify_matches_jax():
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_step_with_smplify_matches_jax(case):
     """The whole step with SMPLify in the loop (2 Adam steps per stage),
-    against JAX, without the depth feedback (see CASES): loss, metrics and
-    the new fits store.  Slow: the JAX side compiles SMPLify inside the step."""
+    against JAX, with the depth feedback (as cashmrV2 trains) and without
+    it (see CASES): loss, metrics and the new fits store, at the tolerances
+    of `test_step_loss_and_metrics_match_jax` for each case.  Slow: the JAX
+    side compiles SMPLify inside the step."""
     import dataclasses
 
     import inbed_pose_estimation_tpu.models.hmr as jhmr
@@ -276,7 +279,7 @@ def test_step_with_smplify_matches_jax():
         model, spec = j_build_model("cashmrV2")
         variables = jax.tree_util.tree_map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0),
                                                                            jnp.zeros((1, RES, RES, 6))))
-        step_fn, _ = j_make_train_step(model, dataclasses.replace(spec, cascade_feed_map=()), j_synthetic(0),
+        step_fn, _ = j_make_train_step(model, dataclasses.replace(spec, cascade_feed_map=CASES[case]), j_synthetic(0),
                                        j_prior(), OptS())
         loss, (_, jfits, jmetrics) = jax.jit(step_fn._loss_fn)(variables["params"], variables["batch_stats"],
                                                                jnp.asarray(_fits()), _nhwc(batch),
@@ -286,11 +289,15 @@ def test_step_with_smplify_matches_jax():
     port, pspec = build_model("cashmrV2", device="cpu", dropout_rate=0.0)
     load_jax_variables(port, variables)
     state = init_train_state(port, OptS(), _fits(), device="cpu")
-    step = make_train_step(port, dataclasses.replace(pspec, cascade_feed_map=()), synthetic_smpl_model(0, device="cpu"),
-                           synthetic_gmm_prior(device="cpu"), OptS(), device="cpu")
+    step = make_train_step(port, dataclasses.replace(pspec, cascade_feed_map=CASES[case]),
+                           synthetic_smpl_model(0, device="cpu"), synthetic_gmm_prior(device="cpu"), OptS(), device="cpu")
     state, metrics = step(state, batch)
-    assert float(metrics["loss"]) == pytest.approx(float(loss), rel=1e-4)
+    rel = 1e-4 if case == "two_pass_no_feedback" else 1e-3
+    assert float(metrics["loss"]) == pytest.approx(float(loss), rel=rel)
     for k, v in jmetrics.items():
-        assert float(metrics[k]) == pytest.approx(float(v), rel=1e-4), k
+        assert float(metrics[k]) == pytest.approx(float(v), rel=rel), k
     assert not np.array_equal(np.asarray(jfits), _fits())
-    np.testing.assert_allclose(state.fits.numpy(), np.asarray(jfits), atol=1e-4)
+    # SMPLify starts from the final stage's prediction, which carries the
+    # feedback's rounding: measured up to 3.3e-4 with it, 1e-4 without.
+    fits_atol = 1e-4 if case == "two_pass_no_feedback" else 1e-3
+    np.testing.assert_allclose(state.fits.numpy(), np.asarray(jfits), atol=fits_atol)

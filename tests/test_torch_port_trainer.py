@@ -391,18 +391,43 @@ def test_train_gpu_runs_on_the_cpu(tree, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--dtype", "bfloat16"], ["--remat"], ["--remat", "decoder"], ["--fast_preprocess"],
                                   ["--crop_cache", "x"], ["--model", "bodiesAtRest"]],
                          ids=lambda f: "_".join(f).strip("-"))
-def test_train_gpu_rejects_what_is_not_ported(tree, tmp_path, flag, capsys):
-    """bfloat16 and --remat stop the CLI before anything is written.  The
-    rest are ported: one step of bodiesAtRest (the cheapest model) with the
-    native crop, with a crop cache directory that holds no cache (refused
-    with the JAX package's message, the images read from disk), and as it
-    is."""
+def test_train_gpu_rejects_what_is_not_ported(tree, tmp_path, flag, capsys, monkeypatch):
+    """Every flag is ported.  --dtype bfloat16, --remat and --remat decoder
+    run one step of hmr and reach build_model (dtype, remat_decoder) and
+    make_train_step (options.remat) as train.py threads them; the
+    parameters stay float32.  The rest run one step of bodiesAtRest (the
+    cheapest model) with the native crop, with a crop cache directory that
+    holds no cache (refused with the JAX package's message, the images read
+    from disk), and as it is."""
     import train_gpu
 
     if flag[0] in ("--dtype", "--remat"):
-        with pytest.raises(SystemExit, match=r"not ported yet: .*ROADMAP Queue \d"):
-            train_gpu.main(_args(tmp_path, *flag))
-        assert not (tmp_path / "run").exists()  # refused before anything is written
+        import inbed_pose_estimation_tpu_torch.models as models_mod
+        import inbed_pose_estimation_tpu_torch.train.trainer as trainer_mod
+
+        seen = {"remat": []}
+        real_build, real_step = models_mod.build_model, trainer_mod.make_train_step
+
+        def build_spy(*args, **kw):
+            seen["build"] = {k: kw.get(k) for k in ("dtype", "remat_decoder")}
+            return real_build(*args, **kw)
+
+        def step_spy(model, spec, smpl, prior, options, **kw):
+            seen["remat"].append(options.remat)
+            return real_step(model, spec, smpl, prior, options, **kw)
+
+        monkeypatch.setattr(models_mod, "build_model", build_spy)
+        monkeypatch.setattr(trainer_mod, "make_train_step", step_spy)
+        trainer = train_gpu.main(_args(tmp_path, *flag, "--allow_synthetic_assets", "--time_to_run", "0"))
+        bf16 = flag[0] == "--dtype"
+        remat = False if bf16 else flag[1] if len(flag) > 1 else "stage"
+        assert seen == {"build": {"dtype": torch.bfloat16 if bf16 else torch.float32,
+                                  "remat_decoder": remat == "decoder"}, "remat": [remat]}
+        assert trainer.step_count == 1 and [h["kind"] for h in trainer.history] == ["summary", "save"]
+        assert all(np.isfinite(v) for v in trainer.history[0]["metrics"].values())
+        model = trainer.state.model
+        assert model.conv1.compute_dtype == (torch.bfloat16 if bf16 else None)
+        assert all(p.dtype == torch.float32 for p in model.parameters())
         return
     argv = _args(tmp_path, *flag, "--allow_synthetic_assets", "--time_to_run", "0")
     argv[argv.index("--model") + 1] = "bodiesAtRest"
@@ -483,9 +508,9 @@ def test_from_json_merges_every_option_but_the_name(tmp_path):
     cfg.write_text(json.dumps({"name": "other", "lr": 1e-3, "batch_size": 2, "remat": False}))
     args = parse_args(_args(tmp_path, "--from_json", str(cfg)))
     assert (args.name, args.lr, args.batch_size) == ("run", 1e-3, 2)
-    cfg.write_text(json.dumps({"dtype": "bfloat16"}))
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 11"):
-        parse_args(_args(tmp_path, "--from_json", str(cfg)))
+    cfg.write_text(json.dumps({"dtype": "bfloat16", "remat": "decoder"}))
+    args = parse_args(_args(tmp_path, "--from_json", str(cfg)))
+    assert (args.name, args.dtype, args.remat) == ("run", "bfloat16", "decoder")
 
 
 @pytest.mark.slow

@@ -11,6 +11,9 @@ the fits store to <log_dir>/<name>/checkpoints/, scalars to
 at each epoch's end, and resumes with `--resume`.  The frozen-guided
 fusion pipelines take their guide from `--pretrained_fusion_checkpoint`;
 Bodies-At-Rest switches to its mode-1 step at `--mod1_epoch`.
+`--dtype bfloat16` computes the model in bfloat16 (the in-training eval
+too); `--remat` recomputes cascade stages, `--remat decoder` the decoders,
+in the backward pass.
 `--crop_cache DIR` reads the images through a crop cache, and
 `--fast_preprocess` crops with the native host kernel.  Paths come from
 INBED_DATA_ROOT, INBED_NPZ_PATH and INBED_ASSET_DIR.
@@ -44,8 +47,12 @@ def setup(argv=None):
                  gmm_prior_file=config.asset("gmm_prior") if options.run_smplify else None)
 
     torch.manual_seed(options.seed)  # the initial weights
+    # --dtype bfloat16 is the model's compute dtype (parameters, Adam's
+    # moments and checkpoints stay float32); --remat decoder is the model's,
+    # --remat (stage) the train step's.
     model, spec = build_model(options.model, smpl_mean_params=config.asset("smpl_mean_params"), device=dev,
-                              img_res=options.img_res)
+                              img_res=options.img_res, dtype=getattr(torch, options.dtype),
+                              remat_decoder=options.remat == "decoder")
     try:
         smpl_model = load_smpl_model(config.asset("smpl_model_dir"), "neutral", device=dev)
     except (FileNotFoundError, OSError, KeyError):
