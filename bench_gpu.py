@@ -14,14 +14,13 @@ vs_baseline divides by configs/baseline_torch_cpu.json's images_per_sec,
 the PyTorch-on-CPU time of the same compute graph that bench.py compares
 with; the file must exist.
 
-    python3 bench_gpu.py [--batch 32] [--res 224] [--iters 20] [--device cuda]
+    python3 bench_gpu.py
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import time
@@ -82,22 +81,20 @@ def measure(batch: int = BATCH, res: int = RES, device: str = "cuda", iters: int
     return max(timed_pass() for _ in range(2))
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description="bfloat16 cashmrV2 inference images/s of the PyTorch port")
-    ap.add_argument("--batch", type=int, default=BATCH)
-    ap.add_argument("--res", type=int, default=RES)
-    ap.add_argument("--iters", type=int, default=ITERS)
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
-    baseline = get_baseline()
-    ips = measure(args.batch, args.res, args.device, args.iters)
-    line = {
-        "metric": f"images/sec/chip batch-{args.batch} 4-mod cashmrV2 inference (cascade+LBS, bfloat16, "
-                  f"{args.res}^2, PyTorch port)",
-        "value": ips,
+def headline(images_per_sec: float, baseline: float, batch: int = BATCH, res: int = RES) -> dict:
+    """The JSON line for `images_per_sec` measured at `batch`, `res`x`res`."""
+    return {
+        "metric": f"images/sec/chip batch-{batch} 4-mod cashmrV2 inference (cascade+LBS, bfloat16, "
+                  f"{res}^2, PyTorch port)",
+        "value": images_per_sec,
         "unit": "images/sec/chip",
-        "vs_baseline": ips / baseline,
+        "vs_baseline": images_per_sec / baseline,
     }
+
+
+def main() -> dict:
+    baseline = get_baseline()  # raises before measuring when the file is missing
+    line = headline(measure(), baseline)
     print(json.dumps(line), flush=True)
     return line
 

@@ -60,6 +60,38 @@ def synthetic_batch(batch: int, res: int, seed: int = 0) -> dict:
     return {k: np.asarray(v, np.int64 if k == "sample_index" else np.float32) for k, v in out.items()}
 
 
+def train_batch(spec, batch_size: int, res: int, rows: int, seed: int) -> dict:
+    """A synthetic batch with the keys one train step of `spec` reads (NCHW
+    images; a fusion or Bodies-At-Rest model's ground-truth body mask in
+    {0, 1}, Bodies-At-Rest's contact channels in [0, 1])."""
+    from ..models.factory import MODALITY_CHANNELS
+    from ..train import step_feed_keys
+
+    r = np.random.default_rng(seed)
+    B = batch_size
+    batch = {m: r.normal(0, 1, (B, MODALITY_CHANNELS[m], res, res)) for m in spec.modalities}
+    batch.update({
+        "depth_img_uncover": r.normal(0, 1, (B, 1, res, res)),
+        "keypoints": np.concatenate([r.uniform(-0.8, 0.8, (B, 49, 2)), r.uniform(0.5, 1.0, (B, 49, 1))], -1),
+        "pose": r.normal(0, 0.2, (B, 72)),
+        "betas": r.normal(0, 0.5, (B, 10)),
+        "pose_3d": np.concatenate([r.normal(0, 0.3, (B, 24, 3)), np.ones((B, 24, 1))], -1),
+        "has_smpl": np.arange(B) % 2,  # half from the ground truth, half from the fits
+        "has_pose_3d": np.ones(B),
+        "is_flipped": r.integers(0, 2, B),
+        "rot_angle": r.uniform(-30, 30, B),
+        "sample_index": r.choice(rows, B, replace=False),
+    })
+    keys = step_feed_keys(spec) - {"pixel_noise"}
+    for k in sorted(keys - set(batch)):
+        if k == "pm_contact":  # Bodies-At-Rest's contact and edge channels, in [0, 1]
+            batch[k] = r.uniform(0, 1, (B, 2, res, res))
+            continue
+        image = r.normal(0, 1, (B, 1, res, res))
+        batch[k] = image > 0 if k == "mask_uncover" else image
+    return {k: np.asarray(v, np.int64 if k == "sample_index" else np.float32) for k, v in batch.items() if k in keys}
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
 

@@ -26,6 +26,7 @@ from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, ma
 from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
 from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
+from inbed_pose_estimation_tpu_torch.tools.bench_train import synthetic_batch
 from inbed_pose_estimation_tpu_torch.train import init_train_state, make_train_step
 from inbed_pose_estimation_tpu_torch.weights import load_jax_variables
 from tests.test_torch_port_bodies_at_rest import jax_variables as bar_variables
@@ -118,11 +119,12 @@ def _forward_outputs(out, port):
     return got
 
 
-@pytest.mark.parametrize("name,mode", [("cashmrV2", None), ("featatt_cashmr", None), ("ir_depth_fusion", None),
+@pytest.mark.parametrize("name,mode", [("featatt_cashmr", None), ("ir_depth_fusion", None),
                                        ("bodiesAtRest4mod", "0"), ("bodiesAtRest4mod", "2")])
 def test_bf16_forward_matches_jax(smpl, name, mode):
-    """One bfloat16 forward of each family's flagship (one cascade pass;
-    the fusion model's two stages with its float32 body mask;
+    """One bfloat16 forward of each family's flagship but the concat
+    family's, whose cashmrV2 `test_bf16_inference_matches_jax` runs through
+    the whole eval program (one cascade pass; the fusion model's two stages with its float32 body mask;
     Bodies-At-Rest's first and refinement stacks) under the ratio rule on
     rotmat, betas, cam and the depth image (recovered, for the fusion
     model) over the batches of SEEDS.  The outputs are float32 where JAX's
@@ -201,6 +203,7 @@ def test_bf16_inference_matches_jax(smpl):
     variables = _variables("cashmrV2", j32, spec, smpl[0])
     kw = dict(j_regressor_h36m=smpl[2], num_cas_iters=2)
     jinfer32, jinfer16 = (j_make_inference_fn(m, spec, smpl[0], **kw) for m in (j32, j16))
+    jinfer32 = jax.jit(jinfer32)  # one compile, not each op's at every call
     jinfer16 = _rounded(jinfer16, variables, tuple(nhwc(x) for x in _inputs(spec, SEEDS[0])))
     port, port_spec = build_model("cashmrV2", device="cpu", dtype=torch.bfloat16)
     load_jax_variables(port, variables)
@@ -235,25 +238,6 @@ class Opt:
     remat = False
 
 
-def _batches(n):
-    """The guardrail's batches, NCHW, at batch B."""
-    r = np.random.default_rng(0)
-    out = []
-    for _ in range(n):
-        b = {k: r.normal(0, 1, (B, 3 if k == "img" else 1, RES, RES))
-             for k in ("img", "ir_img", "depth_img", "pm_img", "depth_img_uncover")}
-        b.update({
-            "keypoints": np.concatenate([r.uniform(-1, 1, (B, 49, 2)), np.ones((B, 49, 1))], -1),
-            "pose": r.normal(0, 0.2, (B, 72)),
-            "betas": r.normal(0, 0.5, (B, 10)),
-            "pose_3d": np.concatenate([r.normal(0, 0.3, (B, 24, 3)), np.ones((B, 24, 1))], -1),
-            "has_smpl": np.ones(B), "has_pose_3d": np.ones(B), "is_flipped": np.zeros(B), "rot_angle": np.zeros(B),
-            "sample_index": np.arange(B),
-        })
-        out.append({k: np.asarray(v, np.int64 if k == "sample_index" else np.float32) for k, v in b.items()})
-    return out
-
-
 def _train(dtype, batches):
     torch.manual_seed(0)
     model, spec = build_model("cashmrV2", device="cpu", dtype=dtype)
@@ -272,7 +256,7 @@ def test_bf16_train_tracks_f32():
     on, the same masks in both dtypes) in bfloat16 against float32 from the
     same weights: finite, both descending, within 5% at every step; the
     parameters and Adam's moments stay float32."""
-    batches = _batches(5)
+    batches = [synthetic_batch(B, RES, seed) for seed in range(5)]
     f32, _ = _train(torch.float32, batches)
     bf16, state = _train(torch.bfloat16, batches)
     assert np.isfinite(bf16).all()
@@ -343,22 +327,35 @@ def test_bf16_step_matches_jax():
         assert d_port <= RATIO * d_jax + 1e-3 * np.sqrt(want_sq[k] / len(SEEDS)), (k, d_port, d_jax)
 
 
-def test_bench_gpu_measures_at_cpu_size(capsys):
+def test_bench_gpu_measures_at_cpu_size():
     import bench_gpu
 
-    line = bench_gpu.main(["--batch", "1", "--res", "64", "--iters", "1", "--device", "cpu"])
-    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert printed == line and set(line) == {"metric", "value", "unit", "vs_baseline"}
+    line = bench_gpu.headline(bench_gpu.measure(1, 64, "cpu", 1), bench_gpu.get_baseline(), 1, 64)
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"}
     assert line["value"] > 0 and line["vs_baseline"] == pytest.approx(line["value"] / 0.275373894274599, rel=1e-12)
-    assert "bfloat16" in line["metric"]
+    assert "batch-1 " in line["metric"] and "64^2" in line["metric"] and "bfloat16" in line["metric"]
+
+
+def test_bench_gpu_prints_the_headline(monkeypatch, capsys):
+    """main() measures at the headline's size on the card (measure stubbed
+    here) and prints one JSON line, the one it returns."""
+    import bench_gpu
+
+    calls = []
+    monkeypatch.setattr(bench_gpu, "measure", lambda *args: calls.append(args) or 550.75)
+    line = bench_gpu.main()
+    assert calls == [()] and json.loads(capsys.readouterr().out) == line
+    assert line == bench_gpu.headline(550.75, bench_gpu.get_baseline())
+    assert "batch-32 " in line["metric"] and "224^2" in line["metric"]
 
 
 def test_bench_gpu_needs_its_baseline(tmp_path, monkeypatch):
     import bench_gpu
 
     monkeypatch.setattr(bench_gpu, "BASELINE_FILE", str(tmp_path / "missing.json"))
+    monkeypatch.setattr(bench_gpu, "measure", lambda *args: pytest.fail("measured without a baseline"))
     with pytest.raises(FileNotFoundError, match="baseline"):
-        bench_gpu.main(["--batch", "1", "--res", "64", "--iters", "1", "--device", "cpu"])
+        bench_gpu.main()
 
 
 def test_bench_train_runs_on_the_cpu(capsys):

@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import train_batch
 from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
 from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.models.layers import checkpoint, recomputing
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
+from inbed_pose_estimation_tpu_torch.tools.bench_train import train_batch
 from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step
 
 RES, B, N_FITS = 64, 2, 16
@@ -47,7 +47,7 @@ def _step(name, remat):
                              device="cpu")
     step = make_train_step(model, spec, synthetic_smpl_model(0, device="cpu"), synthetic_gmm_prior(device="cpu"),
                            options, device="cpu")
-    state, metrics = step(state, train_batch(np, spec, B, RES, N_FITS, 1))
+    state, metrics = step(state, train_batch(spec, B, RES, N_FITS, 1))
     return {"loss": float(metrics["loss"]),
             "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
             "params": {k: p.detach().clone() for k, p in model.named_parameters()},
