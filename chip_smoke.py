@@ -94,7 +94,18 @@ Phases, in order; any failure exits non-zero before the last line:
      (ms a step, peak memory, the losses of 4 steps), one bfloat16 step
      with SMPLify (N = 100; 206 launches), tools/bench_train.py at its
      defaults; inside phase 7, on its tree, one train CLI step with
-     --dtype bfloat16 --remat.
+     --dtype bfloat16 --remat;
+ 11. result dumps and host tools: inside phase 6, on its tree, the eval CLI
+     at its defaults on one split with --result_file (2 skinning launches,
+     the npz, the 7 PNGs of each of the 16 samples drawn, each readable at
+     224x224; images/s with and without the dumps, seconds per dumped
+     sample); `_save_artifacts` from the card's predictions and from the
+     same predictions on the host, byte-identical files; the painter at
+     SMPL's 13776 faces (seconds per image for the overlay and each view);
+     K4 on the card against the CPU at B=32 and 64 (6890 vertices on the
+     112x112 grid, some off it, some at negative fractions) and its ms per
+     call; the offline index tool on a one-subject, 2-pose raw danaLab tree,
+     its npz schema and an item of it through the port's dataset.
 Then the kernel table as one JSON line, the nvidia-smi line, and
 {"ok": true, "device": ...} as the last line.
 """
@@ -243,6 +254,23 @@ BF16_CARD_VS_CPU_LIMITS = {"rotmat": 3e-4, "betas": 1e-4, "cam": 1e-4, "keypoint
 # BatchNorm's buffers and the dropout generator's state are equal too.
 REMAT_CASES, BF16_TIMED_STEPS, REMAT_EXACT_STEPS = (False, "stage", "decoder"), 3, 2
 BF16_LOSS_REL = 0.05
+
+# Phase 11: the result dumps and the host tools.  The eval CLI with
+# --result_file on phase 6's tree (host crop): 8 samples a batch are drawn,
+# 7 files each (cashmrV2 recovers depth).
+DUMP_KINDS = ("shape", "shape_side", "shape_top", "depth_recovered", "depthoutori", "depthout", "mask")
+DUMPS_PER_BATCH = 8
+# The painter at SMPL's face count (the faces built as phase 6 builds K3's),
+# 224^2: images timed for each view.
+PAINTER_FACES, PAINTER_IMAGES = 13776, 2
+# K4 on the card against the CPU at SMPL's vertex count on the 112 x 112
+# grid: the contact maps equal, the depth maps within float32's epsilon
+# times the map's largest value (one rounding at its scale; both devices
+# sum the same 9 slices in the same order).
+K4_BATCHES, K4_GRID = (32, 64), 112
+# The offline index tool on a one-subject, 2-pose raw danaLab tree.
+PREPROCESS_ARGS = ["--eval_files", "--train_files", "--subjects", "1", "--imgs_per_cover", "2"]
+SLP_INDEX_KEYS = ["S", "center", "depthname", "gender", "imgname", "irimgname", "openpose", "part", "pmname", "scale"]
 
 
 def fail(msg: str) -> None:
@@ -524,9 +552,9 @@ def _point_env_at(env: dict) -> None:
 
 
 def eval_driver_phase(torch, np, dev, smi, cuda_ms):
-    """Phase 6 (and phase 8's and phase 9's eval CLI runs on its tree);
+    """Phase 6 (and phase 8's, 9's and 11's eval CLI runs on its tree);
     returns the skinning launches of the driver's run, its batch count, the
-    launches of phase 8's runs by model and of phase 9's."""
+    launches of phase 8's runs by model, of phase 9's and of phase 11's."""
     import tempfile
     import types
 
@@ -612,6 +640,8 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
             # Phase 8's and phase 9's eval CLI runs on this tree.
             family_launches = families_eval_driver(torch, np, dev, smi, base)
             bar_launches = bar_eval_driver(torch, np, dev, smi, base)
+            # Phase 11's eval CLI run with --result_file on this tree.
+            dumps_launches = dumps_eval_driver(torch, np, dev, smi, base)
 
             # The driver's parts at B=32, 224^2, on the first batch of a split.
             # The host time of one batch on the loader's 8 threads, and of
@@ -692,7 +722,7 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    return launches, batches, family_launches, bar_launches
+    return launches, batches, family_launches, bar_launches, dumps_launches
 
 
 def train_driver_phase(torch, np, dev, smi):
@@ -1702,6 +1732,184 @@ def bf16_phase(torch, np, dev, smi, smpl):
     return eval_launches, launches
 
 
+def dumps_eval_driver(torch, np, dev, smi, base):
+    """Phase 11 on phase 6's tree: the eval CLI at its defaults on one split
+    without --result_file, with it (the npz and the image dumps), and
+    without it again.  Returns the skinning launches of the run with the
+    dumps."""
+    import cv2
+
+    import eval_gpu
+
+    from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+
+    split, batches = "slp-4mod-uncover", -(-EVAL_SAMPLES // BATCH)
+    out = f"{base}/dumps"
+    args = EVAL_ARGS + ["--device", dev.type, "--dataset", split]
+    plain = eval_gpu.main(args)[split]
+    sk.launches = 0
+    dumped = eval_gpu.main(args + ["--result_file", out])[split]
+    torch.cuda.synchronize()
+    launches = sk.launches
+    plain_again = eval_gpu.main(args)[split]
+    samples = [lo + i for lo in range(0, EVAL_SAMPLES, BATCH) for i in range(min(DUMPS_PER_BATCH, EVAL_SAMPLES - lo))]
+    want = sorted(f"{i:06d}_{k}.png" for i in samples for k in DUMP_KINDS)
+    got = sorted(os.listdir(f"{out}/{split}"))
+    bad = [name for name in got if os.path.getsize(f"{out}/{split}/{name}") == 0
+           or getattr(cv2.imread(f"{out}/{split}/{name}", cv2.IMREAD_UNCHANGED), "shape", (0, 0))[:2] != (RES, RES)]
+    fits = np.load(f"{out}/smpl_fits/{split}_fits.npz")
+    shapes = {k: list(fits[k].shape) for k in fits.files}
+    n = EVAL_SAMPLES
+    log("dumps_eval_driver", args=args + ["--result_file", out], launches={"skinning": launches}, expected=batches,
+        images_per_s={"no_dumps": plain["timing"]["images_per_s"], "dumps": dumped["timing"]["images_per_s"],
+                      "no_dumps_again": plain_again["timing"]["images_per_s"]},
+        seconds={"no_dumps": plain["timing"]["seconds"], "dumps": dumped["timing"]["seconds"],
+                 "no_dumps_again": plain_again["timing"]["seconds"]},
+        dump_s=dumped["timing"]["dump_s"], dumped_samples=len(samples),
+        s_per_dumped_sample=dumped["timing"]["dump_s"] / len(samples), files=len(got),
+        bytes=sum(os.path.getsize(f"{out}/{split}/{name}") for name in got), npz=shapes, card=smi)
+    check(launches == batches, f"eval_gpu --result_file: {launches} skinning launches, expected {batches}")
+    check(np.isfinite(dumped["mpjpe"]) and dumped["pa_mpjpe"] <= dumped["mpjpe"] and dumped["mask_f1"] is not None,
+          "eval_gpu --result_file: metrics")
+    check(shapes == {"pred_joints": [n, 17, 3], "pose": [n, 72], "betas": [n, 10], "camera": [n, 3],
+                     "rotmat": [n, 24, 3, 3]}, f"results npz schema {shapes}")
+    check(all(np.isfinite(fits[k]).all() for k in fits.files), "results npz: non-finite values")
+    check(got == want, f"eval_gpu --result_file wrote {len(got)} files, expected {len(want)}: "
+                       f"missing {sorted(set(want) - set(got))[:5]}, extra {sorted(set(got) - set(want))[:5]}")
+    check(not bad, f"eval_gpu --result_file: empty or unreadable PNGs {bad[:5]}")
+    return launches
+
+
+def dumps_phase(torch, np, dev, smi, smpl, cuda_ms):
+    """Phase 11 outside the CLI: `_save_artifacts` from the card's
+    predictions against the same predictions on the host (byte-identical
+    files), the painter at SMPL's face count, K4 on the card against the
+    CPU with its time, and the offline index tool on a raw danaLab tree
+    read back through the port's dataset."""
+    import pathlib
+    import tempfile
+    import types
+
+    from inbed_pose_estimation_tpu_torch import constants
+    from inbed_pose_estimation_tpu_torch.data import BaseDataset
+    from inbed_pose_estimation_tpu_torch.data.synthetic import write_synthetic_danalab
+    from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn
+    from inbed_pose_estimation_tpu_torch.evaluation.evaluate import _rodrigues, _save_artifacts
+    from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
+    from inbed_pose_estimation_tpu_torch.ops import vert2map
+    from inbed_pose_estimation_tpu_torch.render import PartRenderer, Renderer
+    from inbed_pose_estimation_tpu_torch.tools import preprocess_datasets
+
+    # The dumps of one batch from the card's predictions (final_recon on, as
+    # --result_file runs it) and from the same predictions on the host.
+    torch.manual_seed(SEED)
+    model, spec = build_model(MODEL, device=dev)
+    V = smpl.v_template.shape[0]
+    infer = make_inference_fn(model, spec, smpl, load_j_regressor_h36m(num_vertices=V), num_cas_iters=NUM_CAS_ITERS,
+                              final_recon=True, device=dev)
+    rng = np.random.default_rng(SEED + 11)
+    inputs = tuple(torch.from_numpy(rng.normal(0, 1, (BATCH, MODALITY_CHANNELS[m], RES, RES)).astype(np.float32))
+                   .to(dev) for m in spec.modalities)
+    preds = infer(inputs)
+    masks = PartRenderer(render_res=RES, template=smpl.v_template.cpu().numpy(), faces=smpl.faces.cpu().numpy(),
+                         render_labels=False, device=dev)(preds["vertices"], preds["cam"])[0]
+    batch = {"img": inputs[spec.modalities.index("img")].cpu().numpy()}
+    host = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu()) for k, v in preds.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dumps_") as base:
+        t0 = time.perf_counter()
+        _save_artifacts(f"{base}/card", "split", 0, batch, preds, smpl, RES, pred_masks=masks)
+        card_s = time.perf_counter() - t0
+        _save_artifacts(f"{base}/host", "split", 0, batch, host, types.SimpleNamespace(faces=smpl.faces.cpu()), RES,
+                        pred_masks=masks.cpu())
+        card_dir, host_dir = pathlib.Path(f"{base}/card/split"), pathlib.Path(f"{base}/host/split")
+        names = sorted(os.listdir(card_dir))
+        same_names = names == sorted(os.listdir(host_dir))
+        differ = ([n for n in names if (card_dir / n).read_bytes() != (host_dir / n).read_bytes()]
+                  if same_names else names)
+    log("dumps_device_check", files=len(names), differing_files=differ, same_names=same_names, seconds=card_s,
+        faces=int(smpl.faces.shape[0]), card=smi)
+    check(same_names and len(names) == DUMPS_PER_BATCH * len(DUMP_KINDS) and not differ,
+          f"_save_artifacts: the card's predictions and the host's wrote different files {differ[:5]}")
+
+    # The painter at SMPL's face count, on the card machine's host.
+    faces = (np.arange(PAINTER_FACES)[:, None] + np.arange(3)[None]) % V
+    painter = Renderer(focal_length=constants.FOCAL_LENGTH, img_res=RES, faces=faces)
+    verts = host["vertices"][:PAINTER_IMAGES].numpy()
+    cam = host["cam"][:PAINTER_IMAGES].numpy()
+    cam_t = np.stack([cam[:, 1], cam[:, 2], 2.0 * constants.FOCAL_LENGTH / (RES * cam[:, 0] + 1e-9)], axis=-1)
+    rgb = np.clip(np.moveaxis(batch["img"][:PAINTER_IMAGES], 1, -1) * np.asarray(constants.IMG_NORM_STD)
+                  + np.asarray(constants.IMG_NORM_MEAN), 0, 1)
+    turn = {"side": _rodrigues(np.array([0.0, np.radians(90.0), 0.0])),
+            "top": _rodrigues(np.array([-np.radians(90.0), 0.0, 0.0]))}
+    painter_s, painted = {}, {}
+    for view in ("overlay", "side", "top"):
+        t0 = time.perf_counter()
+        for i in range(PAINTER_IMAGES):
+            if view == "overlay":
+                img = painter(verts[i], cam_t[i], rgb[i])
+            else:
+                c = verts[i].mean(axis=0)
+                img = painter((verts[i] - c) @ turn[view] + c, cam_t[i])
+        painter_s[view] = (time.perf_counter() - t0) / PAINTER_IMAGES
+        painted[view] = float((img != (rgb[-1] if view == "overlay" else 0)).any(-1).mean())
+    log("painter", faces=PAINTER_FACES, res=RES, images=PAINTER_IMAGES, s_per_image=painter_s,
+        painted_share=painted, card=smi)
+    check(all(v > 0 for v in painted.values()), f"the painter drew nothing: {painted}")
+
+    # K4 on the card against the CPU, and its time (CUDA events).
+    for b in K4_BATCHES:
+        r = np.random.default_rng(SEED + b)
+        taxel = np.concatenate([r.uniform(-8, K4_GRID + 8, (b, V, 2)), r.uniform(0, 1.5, (b, V, 1))], -1)
+        taxel[:, :300, :2] = r.uniform(-0.999, 0, (b, 300, 2))
+        taxel = torch.from_numpy(taxel.astype(np.float32))
+        depth, contact = vert2map(taxel, K4_GRID, K4_GRID)
+        on_card = taxel.to(dev)
+        card_depth, card_contact = (a.cpu() for a in vert2map(on_card, K4_GRID, K4_GRID))
+        err = (card_depth - depth).abs().max().item()
+        limit = torch.finfo(torch.float32).eps * depth.abs().max().item()
+        contact_diff = int((card_contact != contact).sum())
+        ms = cuda_ms(lambda: vert2map(on_card, K4_GRID, K4_GRID), 20)
+        nbytes = 4 * (b * V * 3 + 2 * b * K4_GRID * K4_GRID)
+        log("k4_vert2map", batch=b, vertices=V, grid=K4_GRID, ms=ms, bytes=nbytes,
+            bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", depth_max_abs_err=err, depth_limit=limit,
+            contact_differing_cells=contact_diff, contact_share=contact.mean().item(), card=smi)
+        check(contact_diff == 0, f"K4 at B={b}: {contact_diff} contact cells differ between the card and the CPU")
+        check(err <= limit, f"K4 at B={b}: the card's depth map is {err:.3g} from the CPU's, limit {limit:.3g}")
+
+    # The offline index tool on a raw danaLab tree, read back by the dataset.
+    saved_env = {k: os.environ.get(k) for k in ("INBED_DATA_ROOT", "INBED_NPZ_PATH")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_preprocess_") as base:
+        try:
+            os.environ["INBED_DATA_ROOT"], os.environ["INBED_NPZ_PATH"] = f"{base}/data", f"{base}/extras"
+            write_synthetic_danalab(f"{base}/data", num_imgs=2)
+            t0 = time.perf_counter()
+            written = preprocess_datasets.main(PREPROCESS_ARGS)
+            tool_s = time.perf_counter() - t0
+            schema = {}
+            for path in written:
+                with np.load(path) as index:
+                    schema[os.path.basename(path)] = {k: list(index[k].shape) for k in index.files}
+            item = BaseDataset(types.SimpleNamespace(img_res=RES, device_preprocess=False), "slp-4mod-uncover",
+                               is_train=False)[0]
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    log("preprocess_tool", args=PREPROCESS_ARGS, seconds=tool_s, files=schema,
+        item={k: list(v.shape) for k, v in item.items() if hasattr(v, "shape")}, card=smi)
+    check(len(schema) == 4 and all(sorted(f) == SLP_INDEX_KEYS for f in schema.values()),
+          f"the index tool's npz schema {schema}")
+    rows = {name: f["imgname"][0] for name, f in schema.items()}
+    check(rows == {"slp_4mod_uncover.npz": 2, "slp_4mod_cover1.npz": 2, "slp_4mod_cover2.npz": 2,
+                   "slp_4mod_train.npz": 6}, f"the index tool's rows {rows}")
+    check(item["img"].shape == (3, RES, RES) and item["pose_3d"].shape == (24, 4)
+          and all(np.isfinite(item[k]).all() for k in ("img", "ir_img", "depth_img", "pm_img")),
+          "the dataset's item from the tool's index")
+
+
 def main() -> int:
     import torch
 
@@ -1978,8 +2186,8 @@ def main() -> int:
     launches_train_step = train_phase(torch, np, dev, smi, smpl, cuda_ms)
 
     # 6. eval driver (with phase 8's and 9's eval CLI runs on its tree)
-    launches_eval_driver, eval_driver_batches, launches_families_eval_driver, launches_bar_eval_driver = (
-        eval_driver_phase(torch, np, dev, smi, cuda_ms))
+    (launches_eval_driver, eval_driver_batches, launches_families_eval_driver, launches_bar_eval_driver,
+     launches_dumps_eval_driver) = eval_driver_phase(torch, np, dev, smi, cuda_ms)
 
     # 7. train driver (with phase 8's, 9's and 10's train CLI runs on its tree)
     (launches_train_driver_step, launches_train_driver, train_driver_steps, launches_families_train_driver,
@@ -1993,6 +2201,9 @@ def main() -> int:
 
     # 10. bfloat16 and rematerialization
     launches_bf16_eval, launches_bf16_train_step = bf16_phase(torch, np, dev, smi, smpl)
+
+    # 11. result dumps and host tools (with the eval CLI run inside phase 6)
+    dumps_phase(torch, np, dev, smi, smpl, cuda_ms)
 
     kernels = [{
         "name": "skinning", "route": "cuda",
@@ -2017,6 +2228,7 @@ def main() -> int:
         "launches_bar_eval_driver": launches_bar_eval_driver, "launches_bar_train_driver": launches_bar_train_driver,
         "launches_bf16_eval": launches_bf16_eval, "launches_bf16_train_step": launches_bf16_train_step,
         "launches_bf16_train_driver_step": launches_bf16_train_driver,
+        "launches_dumps_eval_driver": launches_dumps_eval_driver,
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

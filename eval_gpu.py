@@ -8,7 +8,9 @@ raises without a card unless `--device cpu` is given) and
 `--fast_preprocess` (the native host crop, as in `train_gpu.py`).  Scores the
 slp-4mod cover2 / uncover / cover1 splits unless `--dataset` names one, with
 MPJPE, PA-MPJPE, PVE and the body-mask accuracy and F1, and prints each
-split's images/s.  Takes the JAX package's native `.npz` checkpoints and
+split's images/s.  `--result_file DIR` writes, as `eval.py` does, the fits
+npz and the image dumps (mesh overlays, recovered modalities, masks) of
+the first 8 samples of each batch.  Takes the JAX package's native `.npz` checkpoints and
 reference `.pt` files; without `--checkpoint` the weights are random from a
 fixed seed.  The frozen-guided fusion pipelines (ir_depth_pm_fusion,
 ir_depth_pm_rgb_fusion) take their guide from
@@ -129,10 +131,11 @@ def main(argv=None) -> dict:
             device_preprocess=use_device_pre, device=dev)
         t = results[split]["timing"]
         print(f"{split}: {t['images']} images in {t['seconds']:.3f} s ({t['images_per_s']:.2f} images/s; "
-              f"waiting on the loader {t['loader_wait_s']:.3f} s, mask branch {t['mask_s']:.3f} s)")
+              f"waiting on the loader {t['loader_wait_s']:.3f} s, mask branch {t['mask_s']:.3f} s, "
+              f"image dumps {t['dump_s']:.3f} s)")
     if args.result_file:
-        print(f"wrote {args.result_file}/smpl_fits/<split>_fits.npz; the image dumps (mesh overlays, recovered "
-              "modalities, masks) are not ported yet: ROADMAP Queue 1 item 10")
+        print(f"wrote {args.result_file}/smpl_fits/<split>_fits.npz and the image dumps under "
+              + ", ".join(f"{args.result_file}/{split}/" for split in results))
     return results
 
 

@@ -153,3 +153,59 @@ def write_synthetic_environment(base_dir: str, num_subjects: int = 1, samples_pe
     pw3d_index = make_synthetic_3dpw(join(data_root, "3DPW"), num_samples=max(3, samples_per_subject), seed=seed)
     np.savez(join(npz_dir, "3dpw_test.npz"), **pw3d_index)
     return {"data_root": data_root, "npz_path": npz_dir}
+
+
+def write_synthetic_danalab(data_root: str, num_imgs: int = 2, covers: tuple[str, ...] = ("uncover", "cover1"),
+                            seed: int = 0) -> dict:
+    """Write a raw danaLab tree of one subject, as SLP ships it, for the
+    offline index tool: <data_root>/SLP/SLP/danaLab/00001/ with
+    joints_gt_RGB.mat [3, 14, num_imgs] (x, y, visibility; joint 3 occluded,
+    so the pseudo-3D depth takes the bed's), 1024 x 1024 RGB / IR_aligned /
+    depth_aligned / PM_aligned frames for each cover (a blocky texture, so
+    that the joints' boxes lie on the frame and the files stay small), the
+    uncovered depth as per-pixel noise (what the depth lookup at the joints
+    reads), the uncovered body masks, one OpenPose detection (frame 1; the
+    others have none) and danaLab_data_gender.csv beside the tree.
+
+    Returns {"slp_root", "joints" [3, 14, num_imgs], "depth_uncover"
+    [1024, 1024] uint8}.
+    """
+    import json
+
+    import scipy.io as sio
+
+    rng = np.random.default_rng(seed)
+    slp_root = join(data_root, "SLP", "SLP", "danaLab")
+    sub = join(slp_root, "00001")
+    joints = np.zeros((3, 14, num_imgs))
+    joints[0] = rng.uniform(300, 700, (14, num_imgs))
+    joints[1] = rng.uniform(200, 800, (14, num_imgs))
+    joints[2] = 1.0
+    joints[2, 3, :] = 0.0
+    os.makedirs(sub, exist_ok=True)
+    sio.savemat(join(sub, "joints_gt_RGB.mat"), {"joints_gt": joints})
+
+    for mod, cover_list in (("RGB", covers), ("IR_aligned", covers), ("depth_aligned", covers),
+                            ("PM_aligned", covers), ("masks", ("uncover",))):
+        for cover in cover_list:
+            os.makedirs(join(sub, mod, cover), exist_ok=True)
+            for i in range(num_imgs):
+                img = np.repeat(np.repeat(rng.integers(0, 255, (64, 64), np.uint8), 16, 0), 16, 1)
+                name = f"{i + 1:06d}.png"
+                if mod == "RGB":
+                    name, img = "image_" + name, np.stack([img] * 3, -1)
+                write(join(sub, mod, cover, name), img)
+    depth_unc = rng.integers(100, 200, (1024, 1024), np.uint8)
+    os.makedirs(join(sub, "depth_aligned", "uncover"), exist_ok=True)
+    for i in range(num_imgs):
+        write(join(sub, "depth_aligned", "uncover", f"{i + 1:06d}.png"), depth_unc)
+
+    os.makedirs(join(sub, "openpose"), exist_ok=True)
+    kp = np.zeros((25, 3), np.float32)
+    kp[:, 2] = 1.0
+    kp[:, 0] = rng.uniform(300, 700, 25)
+    kp[:, 1] = rng.uniform(200, 800, 25)
+    with open(join(sub, "openpose", "image_000001_keypoints.json"), "w") as f:
+        json.dump({"people": [{"pose_keypoints_2d": kp.reshape(-1).tolist()}]}, f)
+    np.savetxt(join(slp_root, os.pardir, "danaLab_data_gender.csv"), np.ones(200))
+    return {"slp_root": slp_root, "joints": joints, "depth_uncover": depth_unc}

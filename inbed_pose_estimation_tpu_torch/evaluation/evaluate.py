@@ -9,7 +9,8 @@ rasterized into a body mask, uncropped on the host and scored against the
 ground-truth mask file.  The pose metrics stay on the device until a drain
 point (every `log_freq` batches and the end), so that batches do not wait
 for one another; the mask branch reads each batch's masks back, as the JAX
-driver does.
+driver does.  With `result_file`, the first 8 samples of each batch are also
+drawn on the host (`_save_artifacts`).
 """
 
 from __future__ import annotations
@@ -19,19 +20,30 @@ import os
 import time
 from typing import Optional
 
+import cv2
 import numpy as np
 import torch
 
 from .. import constants
 from ..data.device_preprocess import make_device_preprocess
-from ..data.image_io import read_gray_u8
+from ..data.image_io import read_gray_u8, write
 from ..data.loader import CheckpointDataLoader
 from ..data.transforms import uncrop
 from ..device import resolve_device
 from ..geometry import rotmat_to_aa
 from ..render.part_renderer import PartRenderer
+from ..render.renderer import Renderer
 from ..smpl.model import SMPLModel, smpl_forward
 from .pipeline import eval_metrics, load_j_regressor_h36m, make_inference_fn, regress_j17
+
+
+# Samples drawn a batch, which keeps the dumps small.
+_DUMPS_PER_BATCH = 8
+
+# Normalization of each recovered modality: (mean, std).
+_RECON_NORM = {"depth": (constants.DEPTH_NORM_MEAN, constants.DEPTH_NORM_STD),
+               "ir": (constants.IR_NORM_MEAN, constants.IR_NORM_STD),
+               "pm": (constants.PM_NORM_MEAN, constants.PM_NORM_STD)}
 
 
 def _pad(batch: dict, size: int) -> dict:
@@ -104,6 +116,92 @@ def _accumulate(totals: list, scores) -> None:
         totals[j] = totals[j] + v
 
 
+def _rodrigues(aa: np.ndarray) -> np.ndarray:
+    """Axis-angle [3] -> rotation matrix [3, 3] (cv2.Rodrigues), float64."""
+    aa = np.asarray(aa, np.float64)
+    theta = np.linalg.norm(aa)
+    if theta < 1e-12:
+        return np.eye(3)
+    k = aa / theta
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * (K @ K)
+
+
+def _stretch_depth(depth_u8: np.ndarray, black: np.ndarray) -> np.ndarray:
+    """The reference's bed / background contrast stretch (eval.py:362-367):
+    uint8 pixels below 220 (the bed) become (v - 150) * 3 with uint8
+    wraparound, the background (>= 220) passes, the black crop becomes 0."""
+    out = depth_u8.copy()
+    bed = out < 220
+    out[bed] = ((out[bed].astype(np.int64) - 150) * 3).astype(np.uint8)
+    out[black] = 0
+    return out
+
+
+def _save_artifacts(result_file, dataset_name, offset, batch, preds, smpl_model, img_res, pred_masks=None):
+    """Draw the first 8 samples of a batch into <result_file>/<dataset_name>/
+    as the reference's eval.py:294-378 does, file names <offset + i>_*.png:
+      * `shape`: the mesh painted over the input RGB crop; `shape_side`,
+        `shape_top`: the mesh turned 90 degrees about its centroid (y, then
+        -x), on black;
+      * per recovered modality: `<name>_recovered` (grey); for IR `irout`
+        (COLORMAP_HOT); for depth `depthoutori` (the contrast stretch) and
+        `depthout` (stretched, COLORMAP_OCEAN); the crop's black padding
+        zeroed in the colour maps;
+      * `mask`: the predicted body mask, when `pred_masks` is given.
+
+    `batch` is the host loader's (it needs `img`, [bs, 3, res, res]
+    normalized); `preds` are the inference closure's outputs on any device,
+    of which the first rows are read back once.  Unlike the JAX package's,
+    a failed render or write raises: the port has no optional renderer to
+    fall back from.  Only the modalities with a normalization are drawn:
+    the fusion models' `mask` (on which the JAX package raises a KeyError)
+    and Bodies-At-Rest's `est_map` are not images of a modality.
+    """
+    out_dir = os.path.join(result_file, dataset_name)
+    os.makedirs(out_dir, exist_ok=True)
+    imgs = np.moveaxis(np.asarray(batch["img"]), 1, -1)  # [bs, res, res, 3]
+    n = min(imgs.shape[0], _DUMPS_PER_BATCH)
+    cam = preds["cam"][:n].detach().cpu().numpy()
+    # weak_perspective_to_cam_t on the host: numpy divides correctly rounded
+    # as the JAX package does; torch divides by a scalar through a reciprocal.
+    cam_t = np.stack([cam[:, 1], cam[:, 2], 2.0 * constants.FOCAL_LENGTH / (img_res * cam[:, 0] + 1e-9)], axis=-1)
+    verts = preds["vertices"][:n].detach().cpu().numpy()
+    recon = {k: v[:n].detach().float().cpu().numpy() for k, v in preds.get("recon", {}).items() if k in _RECON_NORM}
+    masks = pred_masks[:n].detach().cpu().numpy() if pred_masks is not None else None
+    renderer = Renderer(focal_length=constants.FOCAL_LENGTH, img_res=img_res, faces=smpl_model.faces)
+    mean, std = np.asarray(constants.IMG_NORM_MEAN), np.asarray(constants.IMG_NORM_STD)
+    around_side = _rodrigues(np.array([0.0, np.radians(90.0), 0.0]))
+    around_top = _rodrigues(np.array([-np.radians(90.0), 0.0, 0.0]))
+    for i in range(n):
+        prefix = os.path.join(out_dir, f"{offset + i:06d}")
+        rgb = np.clip(imgs[i] * std + mean, 0, 1)
+        # The crop's zero padding: black in the de-normalized image.
+        black = imgs[i][:, :, 0] * std[0] + mean[0] < 1e-4
+        center = verts[i].mean(axis=0)
+        views = {"shape": renderer(verts[i], cam_t[i], rgb),
+                 "shape_side": renderer((verts[i] - center) @ around_side + center, cam_t[i]),
+                 "shape_top": renderer((verts[i] - center) @ around_top + center, cam_t[i])}
+        for name, img in views.items():
+            write(f"{prefix}_{name}.png", (img[:, :, ::-1] * 255).astype(np.uint8))
+        for name, img in recon.items():
+            mean_r, std_r = _RECON_NORM[name]
+            rec_u8 = (np.clip(img[i, 0] * std_r[0] + mean_r[0], 0, 1) * 255).astype(np.uint8)
+            write(f"{prefix}_{name}_recovered.png", rec_u8)
+            if name == "ir":
+                ir_cm = cv2.applyColorMap(rec_u8, cv2.COLORMAP_HOT)
+                ir_cm[black] = 0
+                write(f"{prefix}_irout.png", ir_cm)
+            elif name == "depth":
+                d_st = _stretch_depth(rec_u8, black)
+                write(f"{prefix}_depthoutori.png", d_st)
+                d_cm = cv2.applyColorMap(d_st, cv2.COLORMAP_OCEAN)
+                d_cm[black] = 0
+                write(f"{prefix}_depthout.png", d_cm)
+        if masks is not None:
+            write(f"{prefix}_mask.png", (masks[i] > 0).astype(np.uint8) * 255)
+
+
 def run_evaluation(
     model,
     spec,
@@ -132,9 +230,13 @@ def run_evaluation(
     <checkpoint_dir>/log.txt.  A metric the split cannot give is None.
     "timing" holds the host clock's view of the run: images, batches,
     seconds, images_per_s, loader_wait_s (blocked on the next batch) and
-    mask_s (the mask branch: its read-back, the host uncrop and scores).
-    With `result_file`, writes <result_file>/smpl_fits/<split>_fits.npz
-    (pose [N, 72] axis-angle, rotmat, betas, camera, pred_joints).
+    mask_s (the mask branch: its read-back, the host uncrop and scores)
+    and dump_s (the image dumps).  With `result_file`, writes
+    <result_file>/smpl_fits/<split>_fits.npz (pose [N, 72] axis-angle,
+    rotmat, betas, camera, pred_joints) and the image dumps of
+    `_save_artifacts` under <result_file>/<split>/; the raw frames of
+    `device_preprocess` have no host image to draw on, so that mode writes
+    the npz only and says so once.
     """
     t_start = time.perf_counter()
     dev = resolve_device(device)
@@ -212,7 +314,8 @@ def run_evaluation(
     def to_dev(x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype).to(dev)
 
-    loader_wait = mask_s = 0.0
+    loader_wait = mask_s = dump_s = 0.0
+    warned_raw = False
     batches = iter(loader)
     while True:
         t0 = time.perf_counter()
@@ -265,6 +368,15 @@ def run_evaluation(
             smpl_betas[lo:hi] = preds["betas"][:bs].cpu().numpy()
             smpl_camera[lo:hi] = preds["cam"][:bs].cpu().numpy()
             pred_joints_out[lo:hi] = preds["keypoints_3d_17"][:bs].cpu().numpy()
+            t0 = time.perf_counter()
+            if "img" in batch:
+                _save_artifacts(result_file, dataset_name, lo, batch, preds, smpl_model, img_res,
+                                pred_masks=masks_dev if part_renderer is not None else None)
+            elif not warned_raw:
+                print("artifact dumps unavailable under --device_preprocess "
+                      "(normalized images never materialize on the host)")
+                warned_raw = True
+            dump_s += time.perf_counter() - t0
 
         if log_freq and step % log_freq == log_freq - 1 and eval_pose:
             drain()
@@ -315,5 +427,5 @@ def run_evaluation(
         print("F1: ", results["mask_f1"])
     seconds = time.perf_counter() - t_start
     results["timing"] = {"images": n, "batches": len(loader), "seconds": seconds, "images_per_s": n / seconds,
-                         "loader_wait_s": loader_wait, "mask_s": mask_s}
+                         "loader_wait_s": loader_wait, "mask_s": mask_s, "dump_s": dump_s}
     return results

@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA skinning kernel against its plain
 version, SMPLify through it, the training step on the card against the
-CPU, and the uint8 feed decoded on the card.  Every test needs a CUDA device and skips without one (a CUDA
+CPU, the uint8 feed decoded on the card and K2-K5 on the card against the
+CPU.  Every test needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode); run them on the card with
 `python -m pytest tests/test_torch_port_cuda.py -m cuda`."""
 
@@ -241,6 +242,26 @@ def test_body_mask_on_card_matches_cpu(cuda):
     card = render_body_mask(verts.to(cuda), cam.to(cuda)).cpu()
     assert (cpu == 1).any() and (cpu == 0).any()
     assert int((card != cpu).sum()) == 0
+
+
+@pytest.mark.parametrize("B", [32, 64])
+def test_taxel_map_on_card_matches_cpu(cuda, B):
+    """K4 (plain torch) on the card against the CPU: SMPL's 6890 vertices a
+    sample on the 112 x 112 grid, some off it and some at negative
+    fractions; the contact maps equal, the depth maps within one float32
+    rounding at their scale."""
+    from inbed_pose_estimation_tpu_torch.ops import vert2map
+
+    rng = np.random.default_rng(9)
+    verts = np.concatenate([rng.uniform(-8, 120, (B, 6890, 2)), rng.uniform(0, 1.5, (B, 6890, 1))], -1)
+    verts[:, :300, :2] = rng.uniform(-0.999, 0, (B, 300, 2))
+    verts = torch.from_numpy(verts.astype(np.float32))
+    depth, contact = vert2map(verts)
+    card_depth, card_contact = (a.cpu() for a in vert2map(verts.to(cuda)))
+    assert 0 < contact.mean() < 1
+    assert torch.equal(card_contact, contact)
+    atol = torch.finfo(torch.float32).eps * depth.abs().max().item()
+    assert (card_depth - depth).abs().max().item() <= atol
 
 
 def test_device_crop_on_card_matches_cpu(cuda):

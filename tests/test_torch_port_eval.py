@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 
+import cv2
 import numpy as np
 import pytest
 
@@ -172,8 +173,17 @@ def test_eval_gpu_runs_on_the_cpu(tree, tmp_path, capsys):
     r = results["slp-4mod-uncover"]
     assert np.isfinite(r["mpjpe"]) and r["pa_mpjpe"] <= r["mpjpe"] and r["mask_f1"] is not None
     assert f"slp-4mod-uncover: MPJPE: {r['mpjpe']}" in out and "images/s" in out
-    assert "image dumps" in out and "Queue 1 item 10" in out
+    assert f"the image dumps under {tmp_path}/slp-4mod-uncover/" in out
     assert (tmp_path / "smpl_fits" / "slp-4mod-uncover_fits.npz").exists()
+    # eval.py's dumps for every sample (hmr recovers no modality): the mesh
+    # overlay, its side and top views and the predicted mask, readable PNGs.
+    kinds = ("shape", "shape_side", "shape_top", "mask")
+    names = sorted(f"{i:06d}_{k}.png" for i in range(r["timing"]["images"]) for k in kinds)
+    assert sorted(os.listdir(tmp_path / "slp-4mod-uncover")) == names
+    for name in names:
+        img = cv2.imread(str(tmp_path / "slp-4mod-uncover" / name), cv2.IMREAD_UNCHANGED)
+        assert img.shape[:2] == (RES, RES), name
+    assert r["timing"]["dump_s"] > 0
     # --pretrained_fusion_checkpoint is ported (tests/test_torch_port_trainer.py
     # drives it through this CLI); so is --crop_cache: a directory without
     # the split's cache is refused with the JAX package's message and the
