@@ -268,8 +268,10 @@ PAINTER_FACES, PAINTER_IMAGES = 13776, 2
 # times the map's largest value (one rounding at its scale; both devices
 # sum the same 9 slices in the same order).
 K4_BATCHES, K4_GRID = (32, 64), 112
-# The offline index tool on a one-subject, 2-pose raw danaLab tree.
-PREPROCESS_ARGS = ["--eval_files", "--train_files", "--subjects", "1", "--imgs_per_cover", "2"]
+# The offline index tool on a one-subject, 2-pose raw danaLab tree: its
+# subject lists and pose count are patched to the tree's.
+PREPROCESS_ARGS = ["--eval_files", "--train_files"]
+PREPROCESS_SUBJECTS, PREPROCESS_IMGS = [1], 2
 SLP_INDEX_KEYS = ["S", "center", "depthname", "gender", "imgname", "irimgname", "openpose", "part", "pmname", "scale"]
 
 
@@ -1786,6 +1788,7 @@ def dumps_phase(torch, np, dev, smi, smpl, cuda_ms):
     files), the painter at SMPL's face count, K4 on the card against the
     CPU with its time, and the offline index tool on a raw danaLab tree
     read back through the port's dataset."""
+    import functools
     import pathlib
     import tempfile
     import types
@@ -1795,6 +1798,7 @@ def dumps_phase(torch, np, dev, smi, smpl, cuda_ms):
     from inbed_pose_estimation_tpu_torch.data.synthetic import write_synthetic_danalab
     from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn
     from inbed_pose_estimation_tpu_torch.evaluation.evaluate import _rodrigues, _save_artifacts
+    from inbed_pose_estimation_tpu_torch.geometry import weak_perspective_to_cam_t_np
     from inbed_pose_estimation_tpu_torch.models import build_model
     from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
     from inbed_pose_estimation_tpu_torch.ops import vert2map
@@ -1836,8 +1840,7 @@ def dumps_phase(torch, np, dev, smi, smpl, cuda_ms):
     faces = (np.arange(PAINTER_FACES)[:, None] + np.arange(3)[None]) % V
     painter = Renderer(focal_length=constants.FOCAL_LENGTH, img_res=RES, faces=faces)
     verts = host["vertices"][:PAINTER_IMAGES].numpy()
-    cam = host["cam"][:PAINTER_IMAGES].numpy()
-    cam_t = np.stack([cam[:, 1], cam[:, 2], 2.0 * constants.FOCAL_LENGTH / (RES * cam[:, 0] + 1e-9)], axis=-1)
+    cam_t = weak_perspective_to_cam_t_np(host["cam"][:PAINTER_IMAGES].numpy(), constants.FOCAL_LENGTH, RES)
     rgb = np.clip(np.moveaxis(batch["img"][:PAINTER_IMAGES], 1, -1) * np.asarray(constants.IMG_NORM_STD)
                   + np.asarray(constants.IMG_NORM_MEAN), 0, 1)
     turn = {"side": _rodrigues(np.array([0.0, np.radians(90.0), 0.0])),
@@ -1879,9 +1882,13 @@ def dumps_phase(torch, np, dev, smi, smpl, cuda_ms):
 
     # The offline index tool on a raw danaLab tree, read back by the dataset.
     saved_env = {k: os.environ.get(k) for k in ("INBED_DATA_ROOT", "INBED_NPZ_PATH")}
+    saved_tool = {k: getattr(preprocess_datasets, k) for k in ("TEST_SUBJECTS", "TRAIN_SUBJECTS", "slp_multi_mod")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_preprocess_") as base:
         try:
             os.environ["INBED_DATA_ROOT"], os.environ["INBED_NPZ_PATH"] = f"{base}/data", f"{base}/extras"
+            preprocess_datasets.TEST_SUBJECTS = preprocess_datasets.TRAIN_SUBJECTS = PREPROCESS_SUBJECTS
+            preprocess_datasets.slp_multi_mod = functools.partial(saved_tool["slp_multi_mod"],
+                                                                  imgs_per_cover=PREPROCESS_IMGS)
             write_synthetic_danalab(f"{base}/data", num_imgs=2)
             t0 = time.perf_counter()
             written = preprocess_datasets.main(PREPROCESS_ARGS)
@@ -1898,8 +1905,11 @@ def dumps_phase(torch, np, dev, smi, smpl, cuda_ms):
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    log("preprocess_tool", args=PREPROCESS_ARGS, seconds=tool_s, files=schema,
-        item={k: list(v.shape) for k, v in item.items() if hasattr(v, "shape")}, card=smi)
+            for k, v in saved_tool.items():
+                setattr(preprocess_datasets, k, v)
+    log("preprocess_tool", args=PREPROCESS_ARGS, subjects=PREPROCESS_SUBJECTS, imgs_per_cover=PREPROCESS_IMGS,
+        seconds=tool_s, files=schema, item={k: list(v.shape) for k, v in item.items() if hasattr(v, "shape")},
+        card=smi)
     check(len(schema) == 4 and all(sorted(f) == SLP_INDEX_KEYS for f in schema.values()),
           f"the index tool's npz schema {schema}")
     rows = {name: f["imgname"][0] for name, f in schema.items()}

@@ -30,7 +30,7 @@ from ..data.image_io import read_gray_u8, write
 from ..data.loader import CheckpointDataLoader
 from ..data.transforms import uncrop
 from ..device import resolve_device
-from ..geometry import rotmat_to_aa
+from ..geometry import rotmat_to_aa, weak_perspective_to_cam_t_np
 from ..render.part_renderer import PartRenderer
 from ..render.renderer import Renderer
 from ..smpl.model import SMPLModel, smpl_forward
@@ -162,10 +162,7 @@ def _save_artifacts(result_file, dataset_name, offset, batch, preds, smpl_model,
     os.makedirs(out_dir, exist_ok=True)
     imgs = np.moveaxis(np.asarray(batch["img"]), 1, -1)  # [bs, res, res, 3]
     n = min(imgs.shape[0], _DUMPS_PER_BATCH)
-    cam = preds["cam"][:n].detach().cpu().numpy()
-    # weak_perspective_to_cam_t on the host: numpy divides correctly rounded
-    # as the JAX package does; torch divides by a scalar through a reciprocal.
-    cam_t = np.stack([cam[:, 1], cam[:, 2], 2.0 * constants.FOCAL_LENGTH / (img_res * cam[:, 0] + 1e-9)], axis=-1)
+    cam_t = weak_perspective_to_cam_t_np(preds["cam"][:n].detach().cpu().numpy(), constants.FOCAL_LENGTH, img_res)
     verts = preds["vertices"][:n].detach().cpu().numpy()
     recon = {k: v[:n].detach().float().cpu().numpy() for k, v in preds.get("recon", {}).items() if k in _RECON_NORM}
     masks = pred_masks[:n].detach().cpu().numpy() if pred_masks is not None else None

@@ -1,4 +1,4 @@
-from .camera import estimate_translation, perspective_projection, weak_perspective_to_cam_t
+from .camera import estimate_translation, perspective_projection, weak_perspective_to_cam_t, weak_perspective_to_cam_t_np
 from .procrustes import compute_similarity_transform, reconstruction_error
 from .rotations import (
     aa_rotate_z,
@@ -25,4 +25,5 @@ __all__ = [
     "rotmat_to_quat",
     "rotmat_to_rot6d",
     "weak_perspective_to_cam_t",
+    "weak_perspective_to_cam_t_np",
 ]

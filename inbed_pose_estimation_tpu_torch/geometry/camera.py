@@ -3,6 +3,7 @@ batched camera-translation least squares."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import FOCAL_LENGTH, IMG_RES
@@ -23,6 +24,14 @@ def weak_perspective_to_cam_t(pred_camera, focal_length=FOCAL_LENGTH, img_res=IM
     s, tx, ty = pred_camera.unbind(-1)
     tz = 2.0 * focal_length / (img_res * s + 1e-9)
     return torch.stack([tx, ty, tz], dim=-1)
+
+
+def weak_perspective_to_cam_t_np(pred_camera: np.ndarray, focal_length=FOCAL_LENGTH, img_res=IMG_RES) -> np.ndarray:
+    """`weak_perspective_to_cam_t` on the host, for the renderers: numpy
+    divides correctly rounded, as the JAX package does, where torch divides
+    a Python number by a tensor through its reciprocal."""
+    tz = 2.0 * focal_length / (img_res * pred_camera[:, 0] + 1e-9)
+    return np.stack([pred_camera[:, 1], pred_camera[:, 2], tz], axis=-1)
 
 
 def estimate_translation(S, joints_2d, focal_length=FOCAL_LENGTH, img_size=IMG_RES):

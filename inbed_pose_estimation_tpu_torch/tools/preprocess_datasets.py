@@ -9,8 +9,6 @@ The port's counterpart of the repository's `preprocess_datasets.py` (the
 reference's preprocess_datasets.py:29-57), with the same flags and files.
 The tree is read from <INBED_DATA_ROOT>/SLP/SLP/danaLab and the files are
 written to INBED_NPZ_PATH, where the port's datasets read them.
-`--subjects` and `--imgs_per_cover` index part of a tree (a download of
-some subjects); by default every subject of the split and SLP's 45 poses.
 """
 
 from __future__ import annotations
@@ -29,25 +27,18 @@ def main(argv=None) -> list:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--train_files", default=False, action="store_true")
     p.add_argument("--eval_files", default=False, action="store_true")
-    p.add_argument("--subjects", type=int, nargs="+", default=None,
-                   help="Subject numbers to index (default: 85-101 for --eval_files, 1-84 for --train_files)")
-    p.add_argument("--imgs_per_cover", type=int, default=45, help="Poses indexed per subject and cover")
     args = p.parse_args(argv)
 
     slp_root = config.dataset_folder("slp-4mod-train")
     out_path = config.npz_path()
     written = []
-
-    def index(out_name, covers, subjects):
-        slp_multi_mod(slp_root, out_path, out_name, covers, args.subjects or subjects,
-                      imgs_per_cover=args.imgs_per_cover)
-        written.append(f"{out_path}/{out_name}")
-
     if args.eval_files:
         for out_name, cover in EVAL_FILES:
-            index(out_name, cover, TEST_SUBJECTS)
+            slp_multi_mod(slp_root, out_path, out_name, cover, TEST_SUBJECTS)
+            written.append(f"{out_path}/{out_name}")
     if args.train_files:
-        index("slp_4mod_train.npz", ["uncover", "cover1", "cover2"], TRAIN_SUBJECTS)
+        slp_multi_mod(slp_root, out_path, "slp_4mod_train.npz", ["uncover", "cover1", "cover2"], TRAIN_SUBJECTS)
+        written.append(f"{out_path}/slp_4mod_train.npz")
     return written
 
 

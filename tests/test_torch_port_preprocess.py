@@ -103,7 +103,7 @@ def test_draw_gaussian_matches_jax(center, sigma):
 
 def test_preprocess_datasets_matches_the_root_script(tree, tmp_path, monkeypatch):
     """Both tools with --eval_files --train_files on subject 1's 2 poses
-    (the root script's subject lists and pose count patched to them): the
+    (each tool's subject lists and pose count patched to them): the
     same four npz files; the port's dataset reads an item of one."""
     data_root, made = tree
     monkeypatch.setattr(j_config, "SLP_ROOT", made["slp_root"])
@@ -117,8 +117,10 @@ def test_preprocess_datasets_matches_the_root_script(tree, tmp_path, monkeypatch
 
     monkeypatch.setenv("INBED_DATA_ROOT", data_root)
     monkeypatch.setenv("INBED_NPZ_PATH", str(tmp_path / "port"))
-    written = preprocess_datasets.main(["--eval_files", "--train_files", "--subjects", "1",
-                                        "--imgs_per_cover", str(N_IMGS)])
+    monkeypatch.setattr(preprocess_datasets, "TEST_SUBJECTS", [1])
+    monkeypatch.setattr(preprocess_datasets, "TRAIN_SUBJECTS", [1])
+    monkeypatch.setattr(preprocess_datasets, "slp_multi_mod", functools.partial(slp_multi_mod, imgs_per_cover=N_IMGS))
+    written = preprocess_datasets.main(["--eval_files", "--train_files"])
     names = ["slp_4mod_uncover.npz", "slp_4mod_cover1.npz", "slp_4mod_cover2.npz", "slp_4mod_train.npz"]
     assert [os.path.basename(p) for p in written] == names
     for name in names:
