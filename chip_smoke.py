@@ -40,11 +40,11 @@ Phases, in order; any failure exits non-zero before the last line:
      memory, the card's busy share of one split (torch.profiler); K3 and K5 on the card against the CPU; and the CLI on the card
      against the CPU at RES 64 over 2-sample splits;
   7. train driver: a synthetic SLP tree at SLP's frame size with a train
-     split of 384 samples, then the train CLI `train_gpu.main` at its
+     split of 256 samples, then the train CLI `train_gpu.main` at its
      defaults (cashmrV2, batch 64, 224x224, float32, 2-pass cascade, 8
      loader threads, uint8 feed, shuffle and augmentation on) with
-     --run_smplify (100 Adam steps a stage) for one epoch of 6 steps (1
-     warm-up, 5 timed, each step's phases kept) and the epoch-end checkpoint
+     --run_smplify (100 Adam steps a stage) for one epoch of 4 steps (1
+     warm-up, 3 timed, each step's phases kept) and the epoch-end checkpoint
      and eval on
      slp-4mod-uncover: 206 skinning launches a step, images/s, ms a step,
      the loader wait and its share, the step alone on a loaded batch,
@@ -105,9 +105,28 @@ Phases, in order; any failure exits non-zero before the last line:
      K4 on the card against the CPU at B=32 and 64 (6890 vertices on the
      112x112 grid, some off it, some at negative fractions) and its ms per
      call; the offline index tool on a one-subject, 2-pose raw danaLab tree,
-     its npz schema and an item of it through the port's dataset.
-Then the kernel table as one JSON line, the nvidia-smi line, and
-{"ok": true, "device": ...} as the last line.
+     its npz schema and an item of it through the port's dataset;
+ 12. data parallel (`parallel/`): inside phase 6, on its tree, the eval CLI
+     under `torchrun --standalone --nproc_per_node 1` (one NCCL rank) on
+     slp-4mod-uncover, its metrics held to phase 6's run without a process
+     group, then run_evaluation on two gloo ranks sharing the card against
+     the same run (skinning launches per rank read from each child); inside
+     phase 7, on its tree, the train CLI under torchrun on one NCCL rank
+     over a 128-row split (2 steps at its defaults with SMPLify, 206
+     launches a step, the epoch's checkpoint); then through the parallel
+     API at the CLI's width (cashmrV2, batch 64, 224x224, SMPLify N = 100):
+     the step in one process and on one NCCL rank (ms a step with and
+     without the process group, the collectives' ms and bytes of a step),
+     and on two gloo ranks sharing the card (32 rows a rank, uneven valid
+     fits) against the one process's first step at the tests' tolerances,
+     both ranks' states bitwise equal, 206 launches a rank, one eval batch.
+     Two ranks on one card check correctness, not scaling; NCCL between
+     cards is not reached by one card;
+ 13. the tools: inside phase 7, tools/loader_bench.py on phase 9's cached
+     split; tools/latency_mode.py at batch 32, tools/profile_mfu.py's
+     inference at batches 32 and 64 and its train step at 64.
+Then the seconds of each phase, the kernel table as one JSON line, the
+nvidia-smi line, and {"ok": true, "device": ...} as the last line.
 """
 
 from __future__ import annotations
@@ -166,10 +185,11 @@ K3_CARD_VS_CPU_MAX_PIXELS = 0
 
 # Phase 7: the train CLI at its defaults with SMPLify on over a synthetic SLP
 # tree at SLP's frame size whose train split (uncover + cover1) holds
-# 2 * TRAIN_SAMPLES = 384 samples: one epoch is 6 steps at batch 64, the
-# loader busy prefetching during the first four and idle in the last two;
-# the eval split slp-4mod-uncover holds TRAIN_SAMPLES.
-TRAIN_SAMPLES, TRAIN_DRIVER_STEPS = 192, 6
+# 2 * TRAIN_SAMPLES = 256 samples: one epoch is 4 steps at batch 64 (6
+# until PR 9; cut to keep the script inside its time with phases 12-13),
+# the loader busy prefetching during the first two and idle in the last
+# two; the eval split slp-4mod-uncover holds TRAIN_SAMPLES.
+TRAIN_SAMPLES, TRAIN_DRIVER_STEPS = 128, 4
 TRAIN_DRIVER_ARGS = ["--name", "chip_smoke", "--run_smplify", "--num_epochs", "1", "--summary_steps", "1",
                      "--data_test", "slp-4mod-uncover", "--allow_synthetic_assets"]
 
@@ -273,6 +293,91 @@ K4_BATCHES, K4_GRID = (32, 64), 112
 PREPROCESS_ARGS = ["--eval_files", "--train_files"]
 PREPROCESS_SUBJECTS, PREPROCESS_IMGS = [1], 2
 SLP_INDEX_KEYS = ["S", "center", "depthname", "gender", "imgname", "irimgname", "openpose", "part", "pmname", "scale"]
+
+# Phase 12: data parallel.  (a) One NCCL rank under torchrun: the train CLI
+# at its defaults with SMPLify over a DP_TRAIN_ROWS-row split of phase 7's
+# tree (2 steps at batch 64, the epoch's checkpoint), the eval CLI on phase
+# 6's DP_EVAL_SPLIT, whose metrics equal phase 6's run without a process
+# group within DP_ONE_RANK_REL; the step through the parallel API at the
+# CLI's width with and without the process group.  (b) Two ranks sharing
+# the card over gloo through the parallel API (NCCL refuses two ranks on one
+# device): the step at full width, 32 rows a rank, against one process's
+# (the tests' tolerances; both ranks' states bitwise equal), and
+# run_evaluation on DP_EVAL_SPLIT against phase 6's within DP_TWO_RANK_REL
+# (each rank's convolutions run at half the batch).  Every child has
+# DP_TIMEOUT seconds, and every collective the group's own timeout.
+DP_TRAIN_SPLIT, DP_TRAIN_ROWS, DP_EVAL_SPLIT = "slp-ir", 128, "slp-4mod-uncover"
+DP_TRAIN_CLI_ARGS = ["--name", "chip_smoke_dp", "--run_smplify", "--data_train", DP_TRAIN_SPLIT, "--num_epochs", "1",
+                     "--summary_steps", "1", "--data_test", "", "--allow_synthetic_assets"]
+DP_STEP_FLAGS = {"model": MODEL, "res": RES, "batch": 64, "smplify_iters": 100}
+DP_TIMED_STEPS, DP_TIMEOUT = 3, 600
+DP_ONE_RANK_REL, DP_TWO_RANK_REL = 1e-6, 1e-5
+DP_LR = 5e-5
+DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL, DP_BN_RTOL, DP_BN_ATOL, DP_FITS_ATOL = (
+    1e-4, 1e-4, 1.2 * 2 * DP_LR, 1e-3, 2e-4, 1e-3)
+# A child process that runs one CLI's `main` (argv[1]: train or eval) in a
+# process group and prints its skinning launches and what the driver
+# returned, after the tag.
+DP_CLI_CHILD = r"""
+import json, sys
+import torch
+from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+from inbed_pose_estimation_tpu_torch.parallel import mesh
+cli, argv = sys.argv[1], sys.argv[2:]
+out = {}
+if cli == "train":
+    import train_gpu
+    trainer = train_gpu.main(argv)
+    summaries = [h for h in trainer.history if h["kind"] == "summary"]
+    out.update(steps=trainer.step_count, smplify_iters=trainer.options.num_smplify_iters,
+               ms_per_step=[h["wall_ms_per_step"] for h in summaries], loss=[h["metrics"]["loss"] for h in summaries],
+               saves=[h["path"] for h in trainer.history if h["kind"] == "save"])
+else:
+    import eval_gpu
+    results = eval_gpu.main(argv)
+    out.update(results={s: {k: v for k, v in r.items() if k != "timing"} for s, r in results.items()},
+               timing={s: r["timing"] for s, r in results.items()})
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+out.update(launches=sk.launches, rank=mesh.rank(), world_size=mesh.world_size(),
+           backend=torch.distributed.get_backend() if mesh.is_initialized() else None)
+print("DP_CHILD " + json.dumps(out), flush=True)
+mesh.shutdown()
+"""
+# Two ranks' run_evaluation on one device over gloo, with the eval CLI's
+# model, weights and defaults (argv: the split, the batch, the model and the
+# device, cuda:0 on the card).
+DP_EVAL_CHILD = r"""
+import json, sys, types
+import torch
+from inbed_pose_estimation_tpu_torch import config
+from inbed_pose_estimation_tpu_torch.data import BaseDataset
+from inbed_pose_estimation_tpu_torch.evaluation import run_evaluation
+from inbed_pose_estimation_tpu_torch.models import build_model
+from inbed_pose_estimation_tpu_torch.ops import skinning as sk
+from inbed_pose_estimation_tpu_torch.parallel import mesh
+from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
+split, batch, model_name, device = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dev = mesh.initialize_distributed(backend="gloo", device=device)
+torch.manual_seed(0)
+model, spec = build_model(model_name, smpl_mean_params=config.asset("smpl_mean_params"), device=dev, img_res=224)
+opts = types.SimpleNamespace(img_res=224, device_preprocess=False, crop_cache=None, fast_preprocess=False)
+r = run_evaluation(model, spec, split, BaseDataset(opts, split, is_train=False), synthetic_smpl_model(0, device=dev),
+                   batch_size=batch, img_res=224, num_workers=8, device=dev)
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+print("DP_CHILD " + json.dumps({"results": {k: v for k, v in r.items() if k != "timing"}, "timing": r["timing"],
+                                "launches": sk.launches, "rank": mesh.rank(), "world_size": mesh.world_size(),
+                                "backend": torch.distributed.get_backend()}), flush=True)
+mesh.shutdown()
+"""
+
+# Phase 13: the three host-side tools at small depth.  latency_mode at batch
+# 32; loader_bench on phase 9's cached split of phase 7's tree; profile_mfu's
+# inference at two batches and its train step at one (bfloat16, no SMPLify).
+LATENCY_ARGS = ["--batch", "32", "--iters", "10"]
+LOADER_BENCH_ARGS = ["--dataset", BAR_TRAIN_SPLIT, "--batch_size", "4", "--rounds", "2", "--batches", "2"]
+MFU_ARGS, MFU_TRAIN_ARGS = ["--batches", "32,64", "--iters", "3"], ["--train", "--batches", "64", "--iters", "3"]
 
 
 def fail(msg: str) -> None:
@@ -591,6 +696,7 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
             torch.cuda.reset_peak_memory_stats()
             sk.launches = 0
             results = eval_gpu.main(EVAL_ARGS + ["--device", dev.type])
+            dp_want = results[DP_EVAL_SPLIT]  # phase 12 holds its runs to this one
             torch.cuda.synchronize()
             launches = sk.launches
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -644,6 +750,9 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
             bar_launches = bar_eval_driver(torch, np, dev, smi, base)
             # Phase 11's eval CLI run with --result_file on this tree.
             dumps_launches = dumps_eval_driver(torch, np, dev, smi, base)
+            # Phase 12's eval runs in a process group on this tree.
+            torch.cuda.empty_cache()
+            dp_launches = dp_eval_driver(torch, np, dev, smi, dp_want)
 
             # The driver's parts at B=32, 224^2, on the first batch of a split.
             # The host time of one batch on the loader's 8 threads, and of
@@ -724,7 +833,7 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    return launches, batches, family_launches, bar_launches, dumps_launches
+    return launches, batches, family_launches, bar_launches, dumps_launches, dp_launches
 
 
 def train_driver_phase(torch, np, dev, smi):
@@ -866,13 +975,18 @@ def train_driver_phase(torch, np, dev, smi):
             family_launches = families_train_driver(torch, np, dev, smi, base)
             bar_launches = bar_train_driver(torch, np, dev, smi, base)
             bf16_launches = bf16_train_driver(torch, np, dev, smi, base)
+            # Phase 12's train CLI run in a process group and phase 13's
+            # loader_bench (on phase 9's cache) on this tree.
+            torch.cuda.empty_cache()
+            dp_launches = dp_train_driver(torch, np, dev, smi, base)
+            loader_bench_driver(np, smi, base)
         finally:
             for k, v in saved_env.items():
                 if v is None:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    return per_step, launches, steps, family_launches, bar_launches, bf16_launches
+    return per_step, launches, steps, family_launches, bar_launches, bf16_launches, dp_launches
 
 
 def write_guide(torch, path: str) -> dict:
@@ -1465,6 +1579,208 @@ def bf16_train_driver(torch, np, dev, smi, base):
     return launches
 
 
+def run_children(cmd, timeout=DP_TIMEOUT):
+    """Run `cmd` in its own process group; returns its output, or fails
+    (after killing the group) when it exits non-zero or outlives `timeout`."""
+    import signal
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail(f"{' '.join(cmd[:6])} ... outlived {timeout} s:\n{out[-6000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    check(proc.returncode == 0, f"{' '.join(cmd[:6])} ... exited with {proc.returncode}:\n{out[-6000:]}")
+    return out
+
+
+def child_results(out: str) -> list:
+    """The DP_CHILD lines of a run, by rank."""
+    got = [json.loads(ln[len("DP_CHILD "):]) for ln in out.splitlines() if ln.startswith("DP_CHILD ")]
+    return sorted(got, key=lambda r: r["rank"])
+
+
+def torchrun_cli(cli: str, argv: list, nprocs: int = 1) -> list:
+    """One CLI's `main` under `torchrun --standalone` (DP_CLI_CHILD); each
+    rank's DP_CHILD result."""
+    out = run_children([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                        str(nprocs), "--no-python", sys.executable, "-c", DP_CLI_CHILD, cli, *argv])
+    got = child_results(out)
+    check(len(got) == nprocs, f"torchrun {cli}: {len(got)} of {nprocs} ranks reported:\n{out[-4000:]}")
+    return got
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(1.0, abs(b))
+
+
+def dp_eval_driver(torch, np, dev, smi, want: dict):
+    """Phase 12 on phase 6's tree: the eval CLI under torchrun on one NCCL
+    rank, and run_evaluation on two gloo ranks sharing the card, each held
+    to `want`, phase 6's run of DP_EVAL_SPLIT without a process group.
+    Returns the skinning launches per rank of both runs."""
+    from inbed_pose_estimation_tpu_torch.parallel import dryrun
+
+    keys = ("mpjpe", "pa_mpjpe", "pve", "mask_accuracy", "mask_f1")
+    batches = -(-EVAL_SAMPLES // BATCH)
+    args = EVAL_ARGS + ["--dataset", DP_EVAL_SPLIT, "--device", dev.type]
+    t0 = time.perf_counter()
+    one = torchrun_cli("eval", args)[0]
+    one_s = time.perf_counter() - t0
+    got = one["results"][DP_EVAL_SPLIT]
+    diff = {k: _rel(got[k], want[k]) for k in keys if want[k] is not None}
+    log("dp_eval_driver_one_rank", args=args, backend=one["backend"], world_size=one["world_size"],
+        launches={"skinning": one["launches"]}, expected=batches, rel_diff=diff, limit=DP_ONE_RANK_REL,
+        images_per_s=one["timing"][DP_EVAL_SPLIT]["images_per_s"], run_s=one_s, card=smi)
+    check(one["backend"] == "nccl" and one["world_size"] == 1, f"eval_gpu under torchrun: {one['backend']}")
+    check(one["launches"] == batches, f"eval_gpu under torchrun: {one['launches']} launches, expected {batches}")
+    check(all(got[k] is not None for k in diff) and max(diff.values()) <= DP_ONE_RANK_REL,
+          f"eval_gpu under torchrun (1 rank) differs from the run without a process group: {diff}")
+
+    t0 = time.perf_counter()
+    shared = "cuda:0" if dev.type == "cuda" else "cpu"
+    runs = dryrun.launch(["-c", DP_EVAL_CHILD, DP_EVAL_SPLIT, str(BATCH), MODEL, shared], 2, timeout=DP_TIMEOUT)
+    two_s = time.perf_counter() - t0
+    for r, (rc, out) in enumerate(runs):
+        check(rc == 0, f"run_evaluation on 2 gloo ranks: rank {r} exited with {rc}:\n{out[-6000:]}")
+    two = [child_results(out)[0] for _, out in runs]
+    diff2 = {k: _rel(two[0]["results"][k], want[k]) for k in keys if want[k] is not None}
+    log("dp_eval_two_ranks", split=DP_EVAL_SPLIT, batch=BATCH, backend=two[0]["backend"],
+        launches_per_rank=[t["launches"] for t in two], expected_per_rank=batches, rel_diff=diff2,
+        limit=DP_TWO_RANK_REL, seconds_per_rank=[t["timing"]["seconds"] for t in two], run_s=two_s, card=smi)
+    check(two[0]["results"] == two[1]["results"], "run_evaluation: the 2 ranks returned different results")
+    check([t["launches"] for t in two] == [batches, batches], "run_evaluation on 2 ranks: launches per rank")
+    check(max(diff2.values()) <= DP_TWO_RANK_REL, f"run_evaluation on 2 gloo ranks differs from 1 process: {diff2}")
+    return one["launches"], two[0]["launches"]
+
+
+def dp_train_driver(torch, np, dev, smi, base):
+    """Phase 12 on phase 7's tree: the train CLI under torchrun on one NCCL
+    rank over a DP_TRAIN_ROWS-row split (2 steps at its defaults with
+    SMPLify, the epoch's checkpoint).  Returns its launches a step."""
+    from inbed_pose_estimation_tpu_torch import config
+
+    with np.load(config.dataset_file("slp-4mod-train", is_train=True)) as full:
+        np.savez(config.dataset_file(DP_TRAIN_SPLIT, is_train=True), **{k: full[k][:DP_TRAIN_ROWS] for k in full.files})
+    args = DP_TRAIN_CLI_ARGS + ["--log_dir", f"{base}/dp_logs", "--device", dev.type]
+    t0 = time.perf_counter()
+    got = torchrun_cli("train", args)[0]
+    run_s = time.perf_counter() - t0
+    steps, n = got["steps"], got["smplify_iters"]
+    per_step = got["launches"] / steps if steps else 0
+    log("dp_train_driver", args=args, backend=got["backend"], world_size=got["world_size"], steps=steps,
+        launches={"skinning": got["launches"]}, launches_per_step=per_step, ms_per_step=got["ms_per_step"],
+        loss=got["loss"], checkpoints=[os.path.basename(p) for p in got["saves"]], run_s=run_s, card=smi)
+    check(got["backend"] == "nccl" and got["world_size"] == 1, f"train_gpu under torchrun: {got['backend']}")
+    check(steps == DP_TRAIN_ROWS // 64 and per_step == 6 + 2 * n,
+          f"train_gpu under torchrun: {steps} steps, {per_step} launches a step, expected {6 + 2 * n}")
+    check(all(np.isfinite(v) for v in got["loss"]), "train_gpu under torchrun: a non-finite loss")
+    check(len(got["saves"]) == 1 and os.path.exists(got["saves"][0]), "train_gpu under torchrun: no checkpoint")
+    return per_step
+
+
+def dp_step_phase(torch, np, dev, smi):
+    """Phase 12 through the parallel API at the train CLI's width: the step
+    in one process, on one NCCL rank, and on two gloo ranks sharing the card
+    (against the one process's first step); the collectives of a step.
+    Returns the skinning launches per rank of the 2-rank step and eval."""
+    import tempfile
+
+    from inbed_pose_estimation_tpu_torch.parallel import dryrun
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as base:
+        env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+        t0 = time.perf_counter()
+        shared = "cuda:0" if dev.type == "cuda" else "cpu"  # the card that both ranks share
+        out = run_children([sys.executable] + dryrun.worker_argv(steps=DP_TIMED_STEPS, device=dev.type,
+                                                                 out=f"{base}/single.pt", **DP_STEP_FLAGS))
+        single = dryrun.results([(0, out)])[0]
+        single_s = time.perf_counter() - t0
+        one = dryrun.results(dryrun.launch(dryrun.worker_argv(steps=DP_TIMED_STEPS, device=dev.type, profile=True,
+                                                              **DP_STEP_FLAGS), 1, timeout=DP_TIMEOUT, env=env))[0]
+        t0 = time.perf_counter()
+        runs = dryrun.launch(dryrun.worker_argv(device=shared, backend="gloo", out=f"{base}/ranks.pt",
+                                                profile=True, eval=True, **DP_STEP_FLAGS), 2, timeout=DP_TIMEOUT,
+                             env=env)
+        two_s = time.perf_counter() - t0
+        for r, (rc, o) in enumerate(runs):
+            check(rc == 0, f"the step on 2 gloo ranks: rank {r} exited with {rc}:\n{o[-6000:]}")
+        two = dryrun.results(runs)
+        a, b = torch.load(f"{base}/single.pt"), torch.load(f"{base}/ranks.pt")
+
+    n = DP_STEP_FLAGS["smplify_iters"]
+    timed = lambda r: sum(r["step_ms"][1:]) / (len(r["step_ms"]) - 1)  # noqa: E731
+    log("dp_step_one_rank", flags=DP_STEP_FLAGS, backend=one["backend"], launches_per_step=one["launches_per_step"],
+        ms_per_step_with_group=timed(one), ms_per_step_without_group=timed(single),
+        step_ms_with_group=one["step_ms"], step_ms_without_group=single["step_ms"],
+        group_cost_ms=timed(one) - timed(single), collectives=one["collectives"], single_process_s=single_s,
+        card=smi)
+    check(one["backend"] == "nccl" and single["backend"] is None, "the 1-rank step did not run on NCCL")
+    check(one["launches_per_step"] == single["launches_per_step"] == 6 + 2 * n,
+          f"skinning launches a step: {one['launches_per_step']} (NCCL), {single['launches_per_step']} (none)")
+    check(one["metrics"] == single["metrics"] or _rel(one["metrics"]["loss"], single["metrics"]["loss"]) <= 1e-4,
+          "the 1-rank step's loss differs from the step without a process group")
+
+    dist = {"params": 0.0, "bn": 0.0}
+    for k, want in a["model"].items():
+        got = b["model"][k]
+        if k.endswith("num_batches_tracked"):
+            check(torch.equal(got, want), f"2 ranks: {k}")
+            continue
+        bn = k.endswith(("running_mean", "running_var"))
+        rtol, atol = (DP_BN_RTOL, DP_BN_ATOL) if bn else (DP_PARAM_RTOL, DP_PARAM_ATOL)
+        check(bool(((got - want).abs() <= atol + rtol * want.abs()).all()), f"2 ranks vs 1 process: {k}")
+        dist["bn" if bn else "params"] = max(dist["bn" if bn else "params"], (got - want).abs().max().item())
+    fits_err = (b["fits"] - a["fits"]).abs().max().item()
+    loss_rel = abs(two[0]["metrics"]["loss"] / single["metrics"]["loss"] - 1)
+    log("dp_step_two_ranks", flags=DP_STEP_FLAGS, backend=two[0]["backend"], device=two[0]["device"],
+        rows_per_rank=[r["local_rows"] for r in two], valid_fit_rows=[r["valid_fit_rows"] for r in two],
+        launches_per_rank=[r["launches_per_step"] for r in two], eval_launches_per_rank=[r["eval_launches"] for r in two],
+        loss_rel=loss_rel, max_abs=dist, fits_max_abs=fits_err, bitwise_equal=[r["state_same_on_every_rank"] for r in two],
+        step_ms=[r["step_ms"] for r in two], collectives=[r["collectives"] for r in two], run_s=two_s,
+        note="two ranks share one card and gloo stages through the host: correctness, not scaling", card=smi)
+    check(all(r["state_same_on_every_rank"] for r in two), "2 ranks: the states are not bitwise equal")
+    check(two[0]["metrics"] == two[1]["metrics"], "2 ranks: the global metrics differ between the ranks")
+    check(loss_rel <= DP_LOSS_RTOL, f"2 ranks vs 1 process: loss rel {loss_rel}")
+    check(fits_err <= DP_FITS_ATOL, f"2 ranks vs 1 process: fits {fits_err}")
+    check([r["launches_per_step"] for r in two] == [6 + 2 * n] * 2, "2 ranks: skinning launches a step per rank")
+    check([r["eval_launches"] for r in two] == [1, 1] and all(r["eval_finite"] for r in two), "2 ranks: eval batch")
+    check(len({r["valid_fit_rows"] for r in two}) == 2, "2 ranks: the valid fits fall evenly; the batch must split them")
+    return two[0]["launches_per_step"], two[0]["eval_launches"]
+
+
+def loader_bench_driver(np, smi, base):
+    """Phase 13 on phase 7's tree: tools/loader_bench.py over phase 9's
+    cached split (disk, native crop, cache, cache + native crop)."""
+    from inbed_pose_estimation_tpu_torch.tools import loader_bench
+
+    args = LOADER_BENCH_ARGS + ["--crop_cache", f"{base}/crop_cache"]
+    got = loader_bench.main(args)
+    log("loader_bench", args=args, result=got, card=smi)
+    check(set(got["configs"]) == {"disk", "disk+fast", "cache", "cache+fast"}
+          and all(np.isfinite(c["median_ms"]) for c in got["configs"].values()), "loader_bench: configs")
+
+
+def tools_phase(torch, np, dev, smi):
+    """Phase 13: latency_mode and profile_mfu on the card."""
+    from inbed_pose_estimation_tpu_torch.tools import latency_mode, profile_mfu
+
+    rows = latency_mode.main(LATENCY_ARGS)
+    log("latency_mode", args=LATENCY_ARGS, rows=rows, card=smi)
+    check(all(np.isfinite(v) and v > 0 for k, v in rows.items() if k != "derived"), "latency_mode: rows")
+    torch.cuda.empty_cache()
+    for args in (MFU_ARGS, MFU_TRAIN_ARGS):
+        got = profile_mfu.main(args)
+        log("profile_mfu", args=args, rows=got, card=smi)
+        check(all(r["mfu"] is not None and 0 < r["mfu"] < 1 and r["device"] == torch.cuda.get_device_name(0)
+                  for r in got), f"profile_mfu {args}: MFU")
+        torch.cuda.empty_cache()
+
+
 def bf16_phase(torch, np, dev, smi, smpl):
     """Phase 10 on synthetic inputs; returns the skinning launches of one
     bfloat16 eval call per model and of one bfloat16 train step with
@@ -1921,6 +2237,7 @@ def dumps_phase(torch, np, dev, smi, smpl, cuda_ms):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2192,28 +2509,53 @@ def main() -> int:
         cascade_forward_ms=forward_ms, lbs_ms=lbs_ms, cascade_flop=cascade_flop,
         cascade_tflop_per_s=cascade_flop / forward_ms / 1e9, card=smi)
 
+    seconds = {"phases_1_4": time.perf_counter() - t_start}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t_start - sum(seconds.values())
+
     # 5. train step
     launches_train_step = train_phase(torch, np, dev, smi, smpl, cuda_ms)
+    lap("phase_5")
 
-    # 6. eval driver (with phase 8's and 9's eval CLI runs on its tree)
+    # 6. eval driver (with phase 8's, 9's, 11's and 12's eval CLI runs on its tree)
     (launches_eval_driver, eval_driver_batches, launches_families_eval_driver, launches_bar_eval_driver,
-     launches_dumps_eval_driver) = eval_driver_phase(torch, np, dev, smi, cuda_ms)
+     launches_dumps_eval_driver, (launches_dp_eval_one_rank, launches_dp_eval_per_rank)) = eval_driver_phase(
+        torch, np, dev, smi, cuda_ms)
+    lap("phase_6")
 
-    # 7. train driver (with phase 8's, 9's and 10's train CLI runs on its tree)
+    # 7. train driver (with phase 8's, 9's, 10's and 12's train CLI runs and
+    # phase 13's loader_bench on its tree)
     (launches_train_driver_step, launches_train_driver, train_driver_steps, launches_families_train_driver,
-     launches_bar_train_driver, launches_bf16_train_driver) = train_driver_phase(torch, np, dev, smi)
+     launches_bar_train_driver, launches_bf16_train_driver, launches_dp_train_driver_step) = train_driver_phase(
+        torch, np, dev, smi)
+    lap("phase_7")
 
     # 8. families
     launches_families_eval, launches_families_train_step = families_phase(torch, np, dev, smi, smpl, cuda_ms)
+    lap("phase_8")
 
     # 9. Bodies-At-Rest
     launches_bar_eval, launches_bar_train_step = bar_phase(torch, np, dev, smi, smpl)
+    lap("phase_9")
 
     # 10. bfloat16 and rematerialization
     launches_bf16_eval, launches_bf16_train_step = bf16_phase(torch, np, dev, smi, smpl)
+    lap("phase_10")
 
     # 11. result dumps and host tools (with the eval CLI run inside phase 6)
     dumps_phase(torch, np, dev, smi, smpl, cuda_ms)
+    lap("phase_11")
+
+    # 12. data parallel (with the CLI runs inside phases 6 and 7)
+    torch.cuda.empty_cache()
+    launches_dp_train_step_per_rank, launches_dp_eval_per_rank_step = dp_step_phase(torch, np, dev, smi)
+    lap("phase_12")
+
+    # 13. the tools (with loader_bench inside phase 7)
+    tools_phase(torch, np, dev, smi)
+    lap("phase_13")
+    log("phase_seconds", seconds=seconds, total=time.perf_counter() - t_start, card=smi)
 
     kernels = [{
         "name": "skinning", "route": "cuda",
@@ -2239,6 +2581,11 @@ def main() -> int:
         "launches_bf16_eval": launches_bf16_eval, "launches_bf16_train_step": launches_bf16_train_step,
         "launches_bf16_train_driver_step": launches_bf16_train_driver,
         "launches_dumps_eval_driver": launches_dumps_eval_driver,
+        "launches_dp_train_step_per_rank": launches_dp_train_step_per_rank,
+        "launches_dp_eval_per_rank": launches_dp_eval_per_rank,
+        "launches_dp_eval_per_rank_step_batch": launches_dp_eval_per_rank_step,
+        "launches_dp_train_driver_step": launches_dp_train_driver_step,
+        "launches_dp_eval_driver_one_rank": launches_dp_eval_one_rank,
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,6 +19,12 @@ grafted after `--checkpoint`.  `--crop_cache DIR` reads the images through
 a crop cache built by `python -m
 inbed_pose_estimation_tpu_torch.tools.build_crop_cache`.  Paths come from INBED_DATA_ROOT,
 INBED_NPZ_PATH and INBED_ASSET_DIR.
+
+Data parallel, one process a device, with the same flags
+(`torchrun --nproc_per_node N eval_gpu.py ...`: NCCL on cuda:<LOCAL_RANK>,
+or gloo with `--device cpu`): each rank infers its rows of each batch of
+`--batch_size`, which N must divide, and every rank gets the whole split's
+metrics.
 """
 
 from __future__ import annotations
@@ -65,14 +71,15 @@ def main(argv=None) -> dict:
 
     from inbed_pose_estimation_tpu_torch import config
     from inbed_pose_estimation_tpu_torch.data import BaseDataset
-    from inbed_pose_estimation_tpu_torch.device import resolve_device
     from inbed_pose_estimation_tpu_torch.evaluation import run_evaluation
     from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.parallel import mesh
     from inbed_pose_estimation_tpu_torch.smpl import load_smpl_model, synthetic_smpl_model
     from inbed_pose_estimation_tpu_torch.train.checkpoint import load_checkpoint, load_guide, load_torch_checkpoint
     from inbed_pose_estimation_tpu_torch.utils.assets_check import check_assets
 
-    dev = resolve_device(args.device)
+    # Under torchrun: this rank's device and the process group.
+    dev = mesh.initialize_distributed(device=args.device)
     # Synthetic stand-ins are for tests, not for metrics: fail unless waived.
     check_assets(allow_synthetic=args.allow_synthetic_assets, smpl_model_dir=config.asset("smpl_model_dir"),
                  smpl_mean_params=config.asset("smpl_mean_params"),
@@ -110,6 +117,7 @@ def main(argv=None) -> dict:
     elif meta.get("main_only"):
         print("WARNING: no --pretrained_fusion_checkpoint — the reference .pt holds the main stage only, so the "
               "frozen ir_depth_fusion guide keeps its random weights; metrics are meaningless for this pipeline")
+    mesh.replicate(model)  # every rank infers with rank 0's weights
 
     use_device_pre = args.device_preprocess and spec.input_mode in ("concat", "multi")
     if args.device_preprocess and not use_device_pre:
@@ -130,14 +138,18 @@ def main(argv=None) -> dict:
             log_freq=args.log_freq, num_cas_iters=args.num_cas_iters, eval_masks_enabled=not args.no_masks,
             device_preprocess=use_device_pre, device=dev)
         t = results[split]["timing"]
-        print(f"{split}: {t['images']} images in {t['seconds']:.3f} s ({t['images_per_s']:.2f} images/s; "
-              f"waiting on the loader {t['loader_wait_s']:.3f} s, mask branch {t['mask_s']:.3f} s, "
-              f"image dumps {t['dump_s']:.3f} s)")
-    if args.result_file:
+        if mesh.rank() == 0:
+            print(f"{split}: {t['images']} images in {t['seconds']:.3f} s ({t['images_per_s']:.2f} images/s; "
+                  f"waiting on the loader {t['loader_wait_s']:.3f} s, mask branch {t['mask_s']:.3f} s, "
+                  f"image dumps {t['dump_s']:.3f} s)")
+    if args.result_file and mesh.rank() == 0:
         print(f"wrote {args.result_file}/smpl_fits/<split>_fits.npz and the image dumps under "
               + ", ".join(f"{args.result_file}/{split}/" for split in results))
     return results
 
 
 if __name__ == "__main__":
+    from inbed_pose_estimation_tpu_torch.parallel import mesh
+
     main()
+    mesh.shutdown()

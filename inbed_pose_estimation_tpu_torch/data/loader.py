@@ -33,13 +33,24 @@ class CheckpointDataLoader:
     """Iterates (batch index, batch) over a stored permutation.
 
     `drop_last` defaults to True, as for training; evaluation passes False
-    so that every sample of the split is covered."""
+    so that every sample of the split is covered.
+
+    Data parallel: with `world_size` > 1, `batch_size` is the global batch
+    and this loader yields the contiguous rows of each global batch that
+    rank `rank` holds (`parallel.mesh.local_rows`), decoding no other.
+    Every rank draws the same permutation from the same `seed`, or reads it
+    from `checkpoint`, so that the ranks' rows together are the batch one
+    process would load.  Without `drop_last` the permutation must fill
+    whole global batches (`run_evaluation` pads it)."""
 
     def __init__(self, dataset, batch_size: int = 32, shuffle: bool = True, num_workers: int = 4,
                  checkpoint: Optional[dict] = None, seed: Optional[int] = None, prefetch: int = 2,
-                 drop_last: bool = True):
+                 drop_last: bool = True, rank: int = 0, world_size: int = 1):
+        if batch_size % world_size:
+            raise ValueError(f"a global batch of {batch_size} does not split over {world_size} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank, self.world_size = rank, world_size
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.drop_last = drop_last
@@ -52,6 +63,9 @@ class CheckpointDataLoader:
             rng = np.random.default_rng(seed)
             self.dataset_perm = rng.permutation(n) if shuffle else np.arange(n)
             self.checkpoint_batch_idx = 0
+        if world_size > 1 and not drop_last and len(self.dataset_perm) % batch_size:
+            raise ValueError(f"{len(self.dataset_perm)} samples leave a tail batch that does not split over "
+                             f"{world_size} ranks: pad the permutation to whole batches")
 
     def __len__(self):
         n = len(self.dataset_perm)
@@ -80,6 +94,9 @@ class CheckpointDataLoader:
                 if stop.is_set():
                     return
                 idx = self.dataset_perm[b * self.batch_size:(b + 1) * self.batch_size]
+                if self.world_size > 1:
+                    local = self.batch_size // self.world_size
+                    idx = idx[self.rank * local:(self.rank + 1) * local]
                 try:
                     q.put((b, self._load_batch(idx)))
                 except Exception as e:  # handed to the consumer, which raises it

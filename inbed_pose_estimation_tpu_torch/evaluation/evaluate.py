@@ -1,8 +1,11 @@
 """The evaluation driver: score one split with MPJPE, PA-MPJPE, PVE and the
 body-mask accuracy and F1.
 
-The port of the JAX package's `evaluation/evaluate.py::run_evaluation` on one
-device.  Per batch: the host loader's batch (or its raw frames through the
+The port of the JAX package's `evaluation/evaluate.py::run_evaluation`, on
+one device or data parallel (`parallel.mesh`): as the JAX driver shards
+each padded batch over its mesh, each rank infers its rows of each global
+batch, and the per-sample metrics and the mask counts are summed over the
+ranks at the end, so that the results are those of one process.  Per batch: the host loader's batch (or its raw frames through the
 device crop), the inference closure (cascade -> SMPL LBS, one skinning
 kernel launch -> J17), the per-sample metrics, and for SLP splits the mesh
 rasterized into a body mask, uncropped on the host and scored against the
@@ -31,6 +34,7 @@ from ..data.loader import CheckpointDataLoader
 from ..data.transforms import uncrop
 from ..device import resolve_device
 from ..geometry import rotmat_to_aa, weak_perspective_to_cam_t_np
+from ..parallel import mesh
 from ..render.part_renderer import PartRenderer
 from ..render.renderer import Renderer
 from ..smpl.model import SMPLModel, smpl_forward
@@ -44,14 +48,6 @@ _DUMPS_PER_BATCH = 8
 _RECON_NORM = {"depth": (constants.DEPTH_NORM_MEAN, constants.DEPTH_NORM_STD),
                "ir": (constants.IR_NORM_MEAN, constants.IR_NORM_STD),
                "pm": (constants.PM_NORM_MEAN, constants.PM_NORM_STD)}
-
-
-def _pad(batch: dict, size: int) -> dict:
-    """Pad every array's first axis to `size` by repeating the last row."""
-    def pad(x):
-        return np.concatenate([x, np.repeat(x[-1:], size - x.shape[0], axis=0)], axis=0)
-
-    return {k: pad(v) for k, v in batch.items()}
 
 
 def _gt_mask_path(imgname: str) -> str:
@@ -138,8 +134,10 @@ def _stretch_depth(depth_u8: np.ndarray, black: np.ndarray) -> np.ndarray:
     return out
 
 
-def _save_artifacts(result_file, dataset_name, offset, batch, preds, smpl_model, img_res, pred_masks=None):
-    """Draw the first 8 samples of a batch into <result_file>/<dataset_name>/
+def _save_artifacts(result_file, dataset_name, offset, batch, preds, smpl_model, img_res, pred_masks=None,
+                    count=None):
+    """Draw the first 8 samples of a batch (or its first `count`, when
+    fewer) into <result_file>/<dataset_name>/
     as the reference's eval.py:294-378 does, file names <offset + i>_*.png:
       * `shape`: the mesh painted over the input RGB crop; `shape_side`,
         `shape_top`: the mesh turned 90 degrees about its centroid (y, then
@@ -161,7 +159,7 @@ def _save_artifacts(result_file, dataset_name, offset, batch, preds, smpl_model,
     out_dir = os.path.join(result_file, dataset_name)
     os.makedirs(out_dir, exist_ok=True)
     imgs = np.moveaxis(np.asarray(batch["img"]), 1, -1)  # [bs, res, res, 3]
-    n = min(imgs.shape[0], _DUMPS_PER_BATCH)
+    n = min(imgs.shape[0], _DUMPS_PER_BATCH, imgs.shape[0] if count is None else count)
     cam_t = weak_perspective_to_cam_t_np(preds["cam"][:n].detach().cpu().numpy(), constants.FOCAL_LENGTH, img_res)
     verts = preds["vertices"][:n].detach().cpu().numpy()
     recon = {k: v[:n].detach().float().cpu().numpy() for k, v in preds.get("recon", {}).items() if k in _RECON_NORM}
@@ -199,6 +197,19 @@ def _save_artifacts(result_file, dataset_name, offset, batch, preds, smpl_model,
             write(f"{prefix}_mask.png", (masks[i] > 0).astype(np.uint8) * 255)
 
 
+def _sum_over_ranks(arrays: list) -> list:
+    """Each array (or number) summed over the ranks, in float64, with one
+    all-reduce."""
+    shapes = [np.shape(a) for a in arrays]
+    flat = mesh.all_reduce_numpy(np.concatenate([np.asarray(a, np.float64).ravel() for a in arrays]))
+    out, off = [], 0
+    for shape in shapes:
+        size = int(np.prod(shape))
+        out.append(flat[off:off + size].reshape(shape) if shape else flat[off])
+        off += size
+    return out
+
+
 def run_evaluation(
     model,
     spec,
@@ -234,9 +245,21 @@ def run_evaluation(
     `_save_artifacts` under <result_file>/<split>/; the raw frames of
     `device_preprocess` have no host image to draw on, so that mode writes
     the npz only and says so once.
+
+    Data parallel: `batch_size` is the global batch, which the world size
+    must divide.  Each rank loads and infers its rows of each batch, the
+    split's order padded to whole batches with its last sample; the rank
+    that holds a sample scores it and draws its dumps, and rank 0 writes
+    log.txt and the npz.  Every rank returns the whole split's results.
+    The running MPJPE printed every `log_freq` batches is one process's
+    only.
     """
     t_start = time.perf_counter()
     dev = resolve_device(device)
+    world, rank = mesh.world_size(), mesh.rank()
+    if batch_size % world:
+        raise ValueError(f"an eval batch of {batch_size} does not split over {world} ranks")
+    local_bs = batch_size // world
     smpl_model.to(dev)
     n = len(dataset)
     V = smpl_model.v_template.shape[0]
@@ -298,10 +321,13 @@ def run_evaluation(
                                      faces=smpl_model.faces.cpu().numpy(), render_labels=eval_parts, device=dev)
     jm_gt = np.asarray(constants.J24_TO_J17)
 
-    # Every sample is scored (drop_last=False); the tail batch is padded to
-    # batch_size with its last sample and the padded rows are sliced off.
-    loader = CheckpointDataLoader(dataset, batch_size=batch_size, shuffle=shuffle, num_workers=num_workers,
-                                  drop_last=False)
+    # Every sample is scored: the order is padded to whole batches with its
+    # last sample, and the padded rows are sliced off.  Every rank takes
+    # rank 0's order.
+    order = mesh.broadcast_object(np.random.default_rng().permutation(n) if shuffle else np.arange(n))
+    order = np.concatenate([order, np.repeat(order[-1:], -n % batch_size)])
+    loader = CheckpointDataLoader(dataset, batch_size=batch_size, num_workers=num_workers,
+                                  checkpoint={"dataset_perm": order}, drop_last=False, rank=rank, world_size=world)
     # Bodies-At-Rest takes the contact channels after the modalities.
     feed_keys = spec.modalities + (("pm_contact",) if spec.input_mode == "pm_contact" else ())
     pre_fn = None
@@ -321,15 +347,16 @@ def run_evaluation(
         if got is None:
             break
         step, batch = got
-        bs = len(batch["imgname"])
-        lo, hi = step * batch_size, step * batch_size + bs
+        # This rank's rows are the split's positions lo..hi; the rest of
+        # its local_bs rows are padding.
+        lo = step * batch_size + rank * local_bs
+        bs = int(np.clip(n - lo, 0, local_bs))
+        hi = lo + bs
         dev_batch = {k: v for k, v in batch.items() if not isinstance(v, list)}
-        if bs < batch_size:
-            dev_batch = _pad(dev_batch, batch_size)
         if pre_fn is not None:  # no flip, no channel noise at eval
             dev_batch.update(pre_fn({k: dev_batch["raw_" + k] for k in spec.modalities if "raw_" + k in dev_batch},
-                                    dev_batch["center"], dev_batch["scale"], np.zeros(batch_size, np.float32),
-                                    np.ones((batch_size, 3), np.float32)))
+                                    dev_batch["center"], dev_batch["scale"], np.zeros(local_bs, np.float32),
+                                    np.ones((local_bs, 3), np.float32)))
         preds = infer(tuple(dev_batch[k] for k in feed_keys))
 
         if eval_pose:
@@ -342,13 +369,13 @@ def run_evaluation(
             metrics = eval_metrics(preds["keypoints_3d_17"], gt_kp3d)
             # PVE against the ground-truth mesh where the sample has SMPL.
             pv_dev, valid = None, np.zeros(bs, dtype=bool)
-            if np.any(batch["has_smpl"] > 0):
+            if np.any(batch["has_smpl"][:bs] > 0):
                 if gt_verts is None:
                     with torch.no_grad():
                         gt_verts = smpl_forward(smpl_model, to_dev(dev_batch["betas"]),
                                                 pose_aa=to_dev(dev_batch["pose"])).vertices
                 pv_dev = torch.sqrt(torch.sum((preds["vertices"] - gt_verts) ** 2, dim=-1)).mean(dim=-1)
-                valid = np.asarray(batch["has_smpl"] > 0)
+                valid = np.asarray(batch["has_smpl"][:bs] > 0)
             pending.append((lo, hi, bs, metrics["mpjpe"], metrics["pa_mpjpe"], pv_dev, valid))
 
         if part_renderer is not None:
@@ -367,20 +394,33 @@ def run_evaluation(
             pred_joints_out[lo:hi] = preds["keypoints_3d_17"][:bs].cpu().numpy()
             t0 = time.perf_counter()
             if "img" in batch:
+                # The batch's first 8 samples, each drawn by the rank that holds it.
                 _save_artifacts(result_file, dataset_name, lo, batch, preds, smpl_model, img_res,
-                                pred_masks=masks_dev if part_renderer is not None else None)
+                                pred_masks=masks_dev if part_renderer is not None else None,
+                                count=min(bs, max(0, _DUMPS_PER_BATCH - rank * local_bs)))
             elif not warned_raw:
                 print("artifact dumps unavailable under --device_preprocess "
                       "(normalized images never materialize on the host)")
                 warned_raw = True
             dump_s += time.perf_counter() - t0
 
-        if log_freq and step % log_freq == log_freq - 1 and eval_pose:
+        if log_freq and step % log_freq == log_freq - 1 and eval_pose and world == 1:
             drain()
             print(f"MPJPE: {1000 * mpjpe[:hi].mean()}")
             print(f"Reconstruction Error: {1000 * recon_err[:hi].mean()}")
 
     drain()
+    if mesh.is_initialized():
+        # Each rank wrote only its samples' positions (zeros elsewhere), so
+        # the sums over the ranks are the whole split's, exactly.
+        arrays = [mpjpe, recon_err, pve, pve_valid, *mask_totals, *parts_totals]
+        if save_results:
+            arrays += [smpl_pose, smpl_betas, smpl_camera, pred_joints_out]
+        summed = _sum_over_ranks(arrays)
+        mpjpe, recon_err, pve, pve_valid = summed[0], summed[1], summed[2], summed[3] > 0
+        mask_totals, parts_totals = summed[4:9], summed[9:14]
+        if save_results:
+            smpl_pose, smpl_betas, smpl_camera, pred_joints_out = summed[14:]
 
     def f1(tp, fp, fn):
         return float((2 * tp / np.maximum(2 * tp + fp + fn, 1)).mean())
@@ -397,7 +437,7 @@ def run_evaluation(
         "parts_f1": f1(p_tp, p_fp, p_fn) if p_pixels else None,
     }
 
-    if save_results:
+    if save_results and rank == 0:
         out_dir = os.path.join(result_file, "smpl_fits")
         os.makedirs(out_dir, exist_ok=True)
         # The reference's schema: `pose` is [N, 72] axis-angle; the rotation
@@ -406,7 +446,7 @@ def run_evaluation(
         np.savez(os.path.join(out_dir, f"{dataset_name}_fits.npz"), pred_joints=pred_joints_out, pose=pose_aa,
                  betas=smpl_betas, camera=smpl_camera, rotmat=smpl_pose)
 
-    if eval_pose:
+    if eval_pose and rank == 0:
         print(f"{dataset_name}: MPJPE: {results['mpjpe']}")
         print(f"\tReconstruction Error: {results['pa_mpjpe']}")
         if checkpoint_dir:
@@ -419,9 +459,10 @@ def run_evaluation(
                     f.write(f"\tFB Accuracy: {results['mask_accuracy']}")
                     f.write(f"\tFB F1: {results['mask_f1']}")
                 f.write("\n")
-    if results["mask_accuracy"] is not None:
+    if results["mask_accuracy"] is not None and rank == 0:
         print("Accuracy: ", results["mask_accuracy"])
         print("F1: ", results["mask_f1"])
+    mesh.barrier()  # log.txt and the npz are written before any rank returns
     seconds = time.perf_counter() - t_start
     results["timing"] = {"images": n, "batches": len(loader), "seconds": seconds, "images_per_s": n / seconds,
                          "loader_wait_s": loader_wait, "mask_s": mask_s, "dump_s": dump_s}

@@ -5,6 +5,13 @@ In a bfloat16 model (`layers.set_compute_dtype`) the convolutions compute in
 bfloat16 and BatchNorm2d takes their bfloat16 output with its float32
 weights and statistics: it normalizes in float32 and returns bfloat16, as
 flax's `BatchNorm(dtype=)` does.
+
+Under data parallel (a process group, `parallel.mesh`) BatchNorm is global,
+as in the JAX package, whose jitted step sees the whole sharded batch: a
+training BatchNorm2d takes its statistics over every rank's rows, so that
+a step's numbers do not depend on the number of ranks.  torch's
+`SyncBatchNorm` is not used: it refuses CPU tensors, and it updates the
+running variance with the unbiased variance, which flax does not.
 """
 
 from __future__ import annotations
@@ -13,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d, recomputing
+from ..parallel import mesh
+from .layers import Conv2d, collective, recomputing
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -33,11 +41,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     state-dict names are torch's.  In the backward pass's recompute of a
     `layers.checkpoint`ed call it normalizes with the batch statistics and
     updates nothing.
+
+    In a process group (`parallel.mesh`) a training layer takes global
+    statistics instead (`_global_forward`).
     """
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if mesh.is_initialized():
+            return self._global_forward(x)
         if recomputing():  # statistics to update that are thrown away
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(), self.weight, self.bias,
                                 True, self.momentum, self.eps)
@@ -48,6 +61,35 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var.mul_((1.0 - self.momentum) / n).add_(running_var, alpha=(n - 1) / n)
         return out
+
+    def _global_forward(self, x):
+        """Batch normalization over the rows of every rank, as flax's
+        `BatchNorm(use_fast_variance=False)` over the whole sharded batch:
+        the per-channel sums and the row count in one all-reduce, the mean,
+        then the biased variance mean((x - mean)^2) two-pass in a second.
+        Both all-reduces are differentiable (their backward sums the ranks'
+        gradients), and the recompute of a `layers.checkpoint`ed call takes
+        the forward's sums back instead of issuing them again.  Statistics
+        are reduced in float32 whatever x's type, and the running
+        statistics take the global mean and biased variance with flax's
+        momentum."""
+        c = x.shape[1]
+        xf = x.float()
+        dims = (0, 2, 3)
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = collective(mesh.all_reduce_sum, torch.cat([xf.sum(dims), count]))
+        n = sums[c]
+        mean = sums[:c] / n
+        d = xf - mean[None, :, None, None]
+        var = collective(mesh.all_reduce_sum, (d * d).sum(dims)) / n
+        out = d * (torch.rsqrt(var + self.eps) * self.weight)[None, :, None, None] + self.bias[None, :, None, None]
+        if not recomputing():
+            m = self.momentum
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+        return out.to(x.dtype)
 
 
 class Bottleneck(nn.Module):

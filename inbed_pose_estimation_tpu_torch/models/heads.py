@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel import mesh
 from .layers import Linear
 
 NPOSE = 24 * 6
@@ -31,11 +32,21 @@ def dropout(x, rate: float, generator=None):
     """Inverted dropout with the mask drawn from `generator` (torch's
     default generator when None): x / (1 - rate) where kept, else 0.  The
     mask is drawn in float32 whatever x's type, so a bfloat16 model draws
-    the masks of a float32 one."""
+    the masks of a float32 one.
+
+    Under data parallel (`parallel.mesh`) x holds this rank's rows of the
+    global batch: the mask of the whole global batch is drawn, as flax
+    draws it from one key, and this rank keeps its rows.  The generators of
+    all ranks then stay in lockstep, and the ranks together draw the masks
+    of one process."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty_like(x, dtype=torch.float32).bernoulli_(keep, generator=generator)
+    w = mesh.world_size()
+    shape = (x.shape[0] * w,) + tuple(x.shape[1:])
+    mask = torch.empty(shape, dtype=torch.float32, device=x.device).bernoulli_(keep, generator=generator)
+    if w > 1:
+        mask = mask[mesh.local_rows(shape[0])]
     return x * mask.to(x.dtype) / keep
 
 

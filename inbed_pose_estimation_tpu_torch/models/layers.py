@@ -15,11 +15,16 @@ them, with two corrections that `jax.checkpoint` needs no help for: in the
 recompute `BatchNorm2d` normalizes with the batch statistics and updates no
 running statistic (the forward already did), and a dropout generator is
 rewound to its state at the forward's start, so that the recompute draws
-the forward's masks, then put back where the forward left it.
+the forward's masks, then put back where the forward left it.  Under data
+parallel, a collective inside the call (`collective`: BatchNorm's global
+statistics) is not issued again in the recompute: the forward keeps its
+result and the recompute takes it back, so that no rank waits in a
+collective that another rank issues at another point of its backward pass.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 from typing import Optional
@@ -67,16 +72,38 @@ def recomputing() -> bool:
     return getattr(_recompute, "depth", 0) > 0
 
 
+def collective(fn, *args):
+    """fn(*args), a collective whose result is a tensor.  Inside the
+    forward of a `checkpoint`ed call the result is kept, and the backward
+    pass's recompute takes it back instead of calling `fn` again."""
+    replays = getattr(_recompute, "replays", [])
+    if recomputing() and replays:
+        value, requires_grad = replays[-1].popleft()
+        # A leaf that asks for a gradient when the forward's result did, so
+        # that the ops after it save the tensors they saved in the forward.
+        out = value.detach().requires_grad_(requires_grad)
+    else:
+        out = fn(*args)
+    for kept in getattr(_recompute, "records", []):
+        kept.append((out.detach(), out.requires_grad))
+    return out
+
+
 def checkpoint(fn, *args, generator: Optional[torch.Generator] = None, **kwargs):
     """fn(*args, **kwargs) with its activations recomputed in the backward
     pass; `generator` is the dropout generator that `fn` draws from."""
     start = {}
+    kept: list = []
 
     @contextlib.contextmanager
     def forward():
         if generator is not None:
             start["state"] = generator.get_state()
-        yield
+        _recompute.records = getattr(_recompute, "records", []) + [kept]
+        try:
+            yield
+        finally:
+            _recompute.records = [r for r in _recompute.records if r is not kept]
 
     @contextlib.contextmanager
     def recompute():
@@ -85,10 +112,12 @@ def checkpoint(fn, *args, generator: Optional[torch.Generator] = None, **kwargs)
             after = generator.get_state()
             generator.set_state(start["state"])
         _recompute.depth = getattr(_recompute, "depth", 0) + 1
+        _recompute.replays = getattr(_recompute, "replays", []) + [collections.deque(kept)]
         try:
             yield
         finally:
             _recompute.depth -= 1
+            _recompute.replays = _recompute.replays[:-1]
             if generator is not None:
                 generator.set_state(after)
 

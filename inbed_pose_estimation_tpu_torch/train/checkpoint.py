@@ -40,6 +40,7 @@ from torch import nn
 
 from ..models.bodies_at_rest import BodiesAtRest
 from ..models.fusion import FrozenGuidedFusion
+from ..parallel import mesh
 from ..weights import jax_state_entries, load_jax_adam_state, load_jax_variables
 
 if TYPE_CHECKING:
@@ -135,9 +136,18 @@ def save_checkpoint(ckpt_dir: str, state: "TrainState", epoch: int, batch_idx: i
                     dataset_perm, total_step_count: int) -> str:
     """Write `<ckpt_dir>/epoch_<epoch>_<batch_idx>.pt` (through a temporary
     file, so that a cut-off write leaves no file under that name); returns
-    its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    its path.  Under data parallel (`parallel.mesh`) rank 0 writes its
+    replica, the state every rank holds, and every rank waits for the file
+    (a barrier) before it returns."""
     path = os.path.join(ckpt_dir, f"epoch_{epoch}_{batch_idx}.pt")
+    if mesh.rank() == 0:
+        _write_checkpoint(path, state, epoch, batch_idx, batch_size, dataset_perm, total_step_count)
+    mesh.barrier()
+    return path
+
+
+def _write_checkpoint(path, state, epoch, batch_idx, batch_size, dataset_perm, total_step_count) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save({
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
@@ -149,7 +159,6 @@ def save_checkpoint(ckpt_dir: str, state: "TrainState", epoch: int, batch_idx: i
         "generator": state.generator.get_state(),
     }, path + ".tmp")
     os.replace(path + ".tmp", path)
-    return path
 
 
 def latest_checkpoint(ckpt_dir: Optional[str]) -> Optional[str]:

@@ -20,6 +20,7 @@ import torch
 from .. import constants
 from ..device import constant, resolve_device
 from ..geometry import aa_rotate_z, flip_pose
+from ..parallel import mesh
 
 
 def _flip_where(pose, is_flipped):
@@ -86,9 +87,12 @@ class FitsStore:
         return sum(s for _, s in self.layout)
 
     def save(self):
-        if self.checkpoint_dir:
+        """Write the store into the checkpoint directory; under data
+        parallel rank 0 writes its replica and every rank waits for it."""
+        if self.checkpoint_dir and mesh.rank() == 0:
             os.makedirs(self.checkpoint_dir, exist_ok=True)
             full = self.array.cpu().numpy()
             for name, size in self.layout:
                 off = self.offsets[name]
                 np.save(os.path.join(self.checkpoint_dir, f"{name}_fits.npy"), full[off:off + size])
+        mesh.barrier()

@@ -10,15 +10,27 @@ from __future__ import annotations
 import torch
 
 from ..geometry import batch_rodrigues
+from ..parallel import mesh
 
 
 def _masked_mean(values: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
     """Mean of values [B, ...] over the rows where row_mask [B] is 1; 0 when
-    no row is selected."""
+    no row is selected.
+
+    Under data parallel (`parallel.mesh`) the rows are this rank's share of
+    the global batch and the mean is the global one: this rank's sum over
+    the global count (all-reduced), times the world size, so that the mean
+    over the ranks, which the gradient average takes, is the masked mean of
+    the global batch.  Ranks hold different counts wherever the mask
+    depends on the data (a valid fit)."""
     B = values.shape[0]
     per_row = values.reshape(B, -1).mean(dim=1)
-    n = torch.sum(row_mask)
-    return torch.where(n > 0, torch.sum(per_row * row_mask) / torch.clamp(n, min=1), 0.0)
+    n = torch.sum(row_mask).detach()
+    scale = 1.0
+    if mesh.is_initialized():
+        n = mesh.all_reduce_(n.clone())
+        scale = float(mesh.world_size())
+    return torch.where(n > 0, torch.sum(per_row * row_mask) * scale / torch.clamp(n, min=1), 0.0)
 
 
 def keypoint_loss(pred_kp2d, gt_kp2d, openpose_weight: float, gt_weight: float) -> torch.Tensor:

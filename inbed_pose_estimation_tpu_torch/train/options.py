@@ -114,6 +114,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     args.checkpoint_dir = os.path.join(args.log_dir, "checkpoints")
     for d in (args.log_dir, args.summary_dir, args.checkpoint_dir):
         os.makedirs(d, exist_ok=True)
-    with open(os.path.join(args.log_dir, "config.json"), "w") as f:
-        json.dump(vars(args), f, indent=4)
+    # Under torchrun every rank parses the same flags; rank 0 writes them.
+    if os.environ.get("RANK", "0") == "0":
+        with open(os.path.join(args.log_dir, "config.json"), "w") as f:
+            json.dump(vars(args), f, indent=4)
     return args

@@ -33,11 +33,24 @@ The state is updated in place: the model's parameters and BatchNorm
 running statistics, the optimizer's moments and the dropout generator;
 the fits store is a new tensor each step.
 
-`Trainer` feeds the step from a resumable loader, one device, and keeps
-the run's state across steps: summaries, checkpoints (`epoch_<E>_<B>.pt`),
-the graceful save-and-exit on `time_to_run`, the eval at each epoch's end,
-and resume from its own checkpoints, the reference's `.pt` or the JAX
-package's `.npz`.
+`Trainer` feeds the step from a resumable loader and keeps the run's state
+across steps: summaries, checkpoints (`epoch_<E>_<B>.pt`), the graceful
+save-and-exit on `time_to_run`, the eval at each epoch's end, and resume
+from its own checkpoints, the reference's `.pt` or the JAX package's
+`.npz`.
+
+Data parallel (`parallel.mesh`, one process a device under torchrun) runs
+one global step, as the JAX package's step over its device mesh does: each
+rank holds its rows of the global batch and a replica of the state, and
+every reduction is global.  BatchNorm takes global statistics
+(`models.backbone`), the masked means divide by global counts
+(`losses._masked_mean`), dropout draws the global batch's masks from the
+generator every rank holds in lockstep (`models.heads.dropout`), every rank
+applies every rank's fits updates, so that the fits store stays replicated
+(SMPLify's loss is a sum over samples, so fitting each rank's rows is
+exact), and the gradients are averaged over the ranks before Adam.  The
+metrics a step returns are the global batch's.  One step's numbers then do
+not depend on the number of ranks, up to float32 reduction order.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ from ..models import cascade_apply
 from ..models.hmr import TRUNK_NAME
 from ..models.layers import checkpoint
 from ..ops.mask_raster import render_body_mask
+from ..parallel import mesh
 from ..smpl.model import SMPLModel, smpl_forward
 from ..utils.profiling import StepTimer
 from . import losses as L
@@ -140,6 +154,15 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
     "1" (the step after `--mod1_epoch`).  After a step each trainable
     parameter's `.grad` holds the gradient that Adam took.
 
+    In a process group (`parallel.mesh`) `batch` is this rank's rows of the
+    global batch and `state` a replica: the gradients of every trainable
+    parameter (zero where the loss does not reach it, the same parameters
+    on every rank) are averaged by one bucketed all_reduce before Adam.
+    DDP is not used: its unused-parameter search and its hooks would have
+    to agree with the frozen guide, Bodies-At-Rest's mode "1" (no
+    gradient at all) and the non-reentrant checkpoint of `--remat`, where
+    one explicit all_reduce after the backward pass needs nothing.
+
     `options.remat` "stage" (or True) recomputes each cascade stage of the
     concat and multi families in the backward pass (`layers.checkpoint`:
     the same dropout masks, the running statistics updated once), which
@@ -174,6 +197,19 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
         eye = torch.eye(3, dtype=rotmat.dtype, device=rotmat.device).expand(B, 3, 3)
         kp2d = perspective_projection(out.joints, eye, cam_t, focal, torch.zeros_like(cam_t[:, :2])) / (img_res / 2.0)
         return out.vertices, out.joints, kp2d, cam_t
+
+    def scatter_rows(indices, rot, is_flipped, update, pose, betas):
+        """The fits update of every rank's rows, on every rank (in float64,
+        which holds the indices and the float32 values exactly), so that
+        the replicated store takes the global batch's updates."""
+        if not mesh.is_initialized():
+            return indices, rot, is_flipped, update, pose, betas
+        packed = torch.cat([indices[:, None].double(), rot[:, None].double(), is_flipped[:, None].double(),
+                            update[:, None].double(), pose.double(), betas.double()], dim=1)
+        rows = mesh.gather_rows(packed)
+        dt = pose.dtype
+        return (rows[:, 0].long(), rows[:, 1].to(rot.dtype), rows[:, 2].to(is_flipped.dtype),
+                rows[:, 3].to(update.dtype), rows[:, 4:76].to(dt), rows[:, 76:].to(dt))
 
     def loss_fn(fits, batch, generator):
         gt_kp2d, gt_pose, gt_betas = batch["keypoints"], batch["pose"], batch["betas"]
@@ -228,7 +264,8 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
                 opt_vertices = torch.where(upd[..., None], fit.vertices, opt_vertices)
                 opt_pose = torch.where(upd, fit.pose, opt_pose)
                 opt_betas = torch.where(upd, fit.betas, opt_betas)
-                fits = fits_set(fits, indices, batch["rot_angle"], batch["is_flipped"], update, opt_pose, opt_betas)
+                fits = fits_set(fits, *scatter_rows(indices, batch["rot_angle"], batch["is_flipped"], update,
+                                                    opt_pose, opt_betas))
             # Reset extreme betas, then put the ground truth where there is one.
             extreme = (opt_betas.abs() > 3).any(dim=-1, keepdim=True)
             opt_betas = torch.where(extreme, 0.0, opt_betas)
@@ -320,14 +357,18 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
         # Adam still decays its moments, as optax does.
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
+        mesh.sync_gradients(params)
         state.optimizer.step()
+        if mesh.is_initialized():  # the global batch's values: the mean over the ranks
+            values = mesh.all_reduce_(torch.stack(list(metrics.values()))) / mesh.world_size()
+            metrics = dict(zip(metrics, values))
         return dataclasses.replace(state, fits=fits, step=state.step + 1), metrics
 
     return train_step
 
 
 class Trainer:
-    """The epoch and step driver on one device.
+    """The epoch and step driver, on one device or data parallel.
 
     `options` are the train CLI's (`train.options.parse_args`); `train_ds`
     yields items of the training feed (a `MixedDataset` or `BaseDataset`
@@ -342,11 +383,28 @@ class Trainer:
     step, images/s), "save" (path, bytes, seconds), "eval" (seconds), and
     for Bodies-At-Rest "bar_mode" (the epoch and the step's mode, "0" or
     "1", at its start).
+
+    In a process group (`parallel.mesh`) `options.batch_size` is the global
+    batch, each rank loads and steps on its contiguous rows of it, the
+    state is broadcast from rank 0 after set-up (and after a resume, which
+    every rank reads), rank 0 alone writes the checkpoints, the fits and
+    the summaries, and the exit on `time_to_run` is rank 0's decision,
+    broadcast every step, so that no rank leaves while another waits in the
+    next step's collective.  Where the JAX package runs its mesh on the
+    largest device count that divides the batch and idles the other
+    devices, this raises at set-up when the world size does not divide
+    `batch_size`: the JAX package cannot choose its device count, and a
+    torchrun user can.
     """
 
     def __init__(self, options, model, spec, smpl_model, prior, train_ds, summary_writer=None,
                  device: str | torch.device = "cuda"):
         dev = resolve_device(device)
+        world = mesh.world_size()
+        if options.batch_size % world:
+            largest = max(n for n in range(1, world + 1) if options.batch_size % n == 0)
+            raise ValueError(f"--batch_size {options.batch_size} does not split over {world} ranks; the largest "
+                             f"rank count that divides it is {largest}")
         self.options = options
         self.model = model
         self.spec = spec
@@ -379,6 +437,7 @@ class Trainer:
                 self.step_count = int(meta.get("total_step_count", 0))
                 if meta.get("dataset_perm") is not None:
                     self.dataset_perm = np.asarray(meta["dataset_perm"])
+        mesh.replicate(self.state)
         self.state.step = self.step_count
         self.history: list[dict] = []
 
@@ -418,7 +477,8 @@ class Trainer:
             if epoch == self.epoch0 and self.dataset_perm is not None:
                 ckpt = {"dataset_perm": self.dataset_perm, "batch_idx": self.checkpoint_batch_idx}
             loader = CheckpointDataLoader(self.train_ds, batch_size=opts.batch_size, shuffle=opts.shuffle_train,
-                                          num_workers=opts.num_workers, checkpoint=ckpt, seed=opts.seed + epoch)
+                                          num_workers=opts.num_workers, checkpoint=ckpt, seed=opts.seed + epoch,
+                                          rank=mesh.rank(), world_size=mesh.world_size())
             it = iter(loader)
             while True:
                 with timer.phase("data"):
@@ -438,13 +498,15 @@ class Trainer:
                     wall = time.time() - window_t0
                     ips = opts.batch_size * window_steps / wall if wall > 0 else 0.0
                     step_ms = 1000.0 * wall / window_steps
-                    if self.summary_writer is not None:
+                    if self.summary_writer is not None and mesh.rank() == 0:
                         for k, v in m.items():
                             self.summary_writer.add_scalar(k, v, self.step_count)
                         self.summary_writer.add_scalar("perf/images_per_sec", ips, self.step_count)
                         self.summary_writer.add_scalar("perf/step_ms", step_ms, self.step_count)
-                    print(f"epoch {epoch} step {self.step_count}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items())
-                          + f" | {timer.summary()} wall_step={step_ms:.1f}ms ips={ips:.1f}", flush=True)
+                    if mesh.rank() == 0:
+                        print(f"epoch {epoch} step {self.step_count}: "
+                              + " ".join(f"{k}={v:.4f}" for k, v in m.items())
+                              + f" | {timer.summary()} wall_step={step_ms:.1f}ms ips={ips:.1f}", flush=True)
                     self.history.append({"kind": "summary", "epoch": epoch, "step": self.step_count, "metrics": m,
                                          "phases_ms": {k: 1e3 * v for k, v in timer.means.items()},
                                          "steps": window_steps, "wall_ms_per_step": step_ms, "images_per_s": ips})
@@ -455,7 +517,8 @@ class Trainer:
                     self._save(epoch, batch_idx + 1, loader.dataset_perm)
                 if opts.test_steps and self.step_count % opts.test_steps == 0 and eval_fn:
                     self._eval(eval_fn)
-                if time.time() - start > opts.time_to_run:
+                # One decision for every rank: rank 0's clock.
+                if mesh.broadcast_object(time.time() - start > opts.time_to_run):
                     it.close()
                     self._save(epoch, batch_idx + 1, loader.dataset_perm)
                     print("Timeout reached: checkpoint saved, exiting cleanly", flush=True)

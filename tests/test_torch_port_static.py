@@ -59,7 +59,9 @@ def test_resolve_device_raises_without_cuda_and_pins_f32(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["build_model", "synthetic_smpl_model", "make_inference_fn", "synthetic_gmm_prior",
                                    "make_train_step", "init_train_state", "run_evaluation", "make_device_preprocess",
-                                   "PartRenderer", "eval_gpu.main", "train_gpu.main", "Trainer"])
+                                   "PartRenderer", "eval_gpu.main", "train_gpu.main", "Trainer",
+                                   "initialize_distributed", "latency_mode.main", "profile_mfu.main",
+                                   "profile_mfu.main --train"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, entry):
     _cuda_missing(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -84,6 +86,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
             model, spec = build_model("hmr", device="cpu")
             Trainer(parse_args(["--name", "x", "--log_dir", str(tmp_path)]), model, spec,
                     synthetic_smpl_model(0, device="cpu"), synthetic_gmm_prior(device="cpu"), [None] * 4)
+        elif entry == "initialize_distributed":
+            from inbed_pose_estimation_tpu_torch.parallel import initialize_distributed
+
+            initialize_distributed()
+        elif entry == "latency_mode.main":
+            from inbed_pose_estimation_tpu_torch.tools import latency_mode
+
+            latency_mode.main(["--batch", "2", "--res", "64"])
+        elif entry.startswith("profile_mfu.main"):
+            from inbed_pose_estimation_tpu_torch.tools import profile_mfu
+
+            profile_mfu.main(["--batches", "2", "--res", "64"] + entry.split()[1:])
         elif entry == "build_model":
             build_model("hmr")
         elif entry == "synthetic_smpl_model":

@@ -17,6 +17,14 @@ in the backward pass.
 `--crop_cache DIR` reads the images through a crop cache, and
 `--fast_preprocess` crops with the native host kernel.  Paths come from
 INBED_DATA_ROOT, INBED_NPZ_PATH and INBED_ASSET_DIR.
+
+Data parallel, one process a device, with the same flags:
+
+    torchrun --nproc_per_node 8 train_gpu.py --name exp ...               # NCCL, cuda:<LOCAL_RANK>
+    torchrun --nproc_per_node 2 train_gpu.py --name exp --device cpu ...  # gloo
+
+`--batch_size` is the global batch, which the number of processes must
+divide; rank 0 writes the checkpoints, the fits and the scalars.
 """
 
 from __future__ import annotations
@@ -32,15 +40,16 @@ def setup(argv=None):
 
     from inbed_pose_estimation_tpu_torch import config
     from inbed_pose_estimation_tpu_torch.data import BaseDataset, MixedDataset
-    from inbed_pose_estimation_tpu_torch.device import resolve_device
     from inbed_pose_estimation_tpu_torch.evaluation import run_evaluation
     from inbed_pose_estimation_tpu_torch.fitting import load_gmm_prior
     from inbed_pose_estimation_tpu_torch.models import build_model
+    from inbed_pose_estimation_tpu_torch.parallel import mesh
     from inbed_pose_estimation_tpu_torch.smpl import load_smpl_model, synthetic_smpl_model
     from inbed_pose_estimation_tpu_torch.train import ScalarWriter, Trainer
     from inbed_pose_estimation_tpu_torch.utils.assets_check import check_assets
 
-    dev = resolve_device(options.device)
+    # Under torchrun: this rank's device and the process group.
+    dev = mesh.initialize_distributed(device=options.device)
     # Synthetic stand-ins are for tests, not for training: fail unless waived.
     check_assets(allow_synthetic=options.allow_synthetic_assets, smpl_model_dir=config.asset("smpl_model_dir"),
                  smpl_mean_params=config.asset("smpl_mean_params"),
@@ -61,15 +70,18 @@ def setup(argv=None):
     train_ds = MixedDataset(options, ignore_3d=options.ignore_3d, is_train=True)
     test_datasets = {s: BaseDataset(options, s, is_train=False) for s in options.data_test.split("+") if s}
 
+    # At most 32, split evenly over the ranks.
+    eval_batch = min(options.batch_size, 32) // mesh.world_size() * mesh.world_size()
+
     def eval_fn(trainer):
         for name, ds in test_datasets.items():
             run_evaluation(model, spec, name, ds, smpl_model, checkpoint_dir=options.checkpoint_dir,
-                           batch_size=min(options.batch_size, 32), img_res=options.img_res,
+                           batch_size=eval_batch, img_res=options.img_res,
                            num_workers=options.num_workers, num_cas_iters=options.num_cas_iters,
                            eval_masks_enabled=not options.no_render, device=dev)
 
     trainer = Trainer(options, model, spec, smpl_model, prior, train_ds,
-                      summary_writer=ScalarWriter(options.summary_dir), device=dev)
+                      summary_writer=ScalarWriter(options.summary_dir) if mesh.rank() == 0 else None, device=dev)
     return options, trainer, eval_fn
 
 
@@ -83,4 +95,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from inbed_pose_estimation_tpu_torch.parallel import mesh
+
     main()
+    mesh.shutdown()
