@@ -185,10 +185,10 @@ K3_CARD_VS_CPU_MAX_PIXELS = 0
 
 # Phase 7: the train CLI at its defaults with SMPLify on over a synthetic SLP
 # tree at SLP's frame size whose train split (uncover + cover1) holds
-# 2 * TRAIN_SAMPLES = 256 samples: one epoch is 4 steps at batch 64 (6
-# until PR 9; cut to keep the script inside its time with phases 12-13),
-# the loader busy prefetching during the first two and idle in the last
-# two; the eval split slp-4mod-uncover holds TRAIN_SAMPLES.
+# 2 * TRAIN_SAMPLES = 256 samples: one epoch is 4 steps at batch 64 (cut
+# from 6 to keep the script inside its time with phases 12-13), the loader
+# busy prefetching during the first two and idle in the last two; the eval
+# split slp-4mod-uncover holds TRAIN_SAMPLES.
 TRAIN_SAMPLES, TRAIN_DRIVER_STEPS = 128, 4
 TRAIN_DRIVER_ARGS = ["--name", "chip_smoke", "--run_smplify", "--num_epochs", "1", "--summary_steps", "1",
                      "--data_test", "slp-4mod-uncover", "--allow_synthetic_assets"]
@@ -316,8 +316,8 @@ DP_LR = 5e-5
 DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL, DP_BN_RTOL, DP_BN_ATOL, DP_FITS_ATOL = (
     1e-4, 1e-4, 1.2 * 2 * DP_LR, 1e-3, 2e-4, 1e-3)
 # A child process that runs one CLI's `main` (argv[1]: train or eval) in a
-# process group and prints its skinning launches and what the driver
-# returned, after the tag.
+# process group and prints its skinning launches and what `main` returned,
+# after the tag.
 DP_CLI_CHILD = r"""
 import json, sys
 import torch

@@ -5,9 +5,10 @@ The port of the JAX package's `evaluation/evaluate.py::run_evaluation`, on
 one device or data parallel (`parallel.mesh`): as the JAX driver shards
 each padded batch over its mesh, each rank infers its rows of each global
 batch, and the per-sample metrics and the mask counts are summed over the
-ranks at the end, so that the results are those of one process.  Per batch: the host loader's batch (or its raw frames through the
-device crop), the inference closure (cascade -> SMPL LBS, one skinning
-kernel launch -> J17), the per-sample metrics, and for SLP splits the mesh
+ranks at the end, so that the results are those of one process.  Per
+batch: the host loader's batch (or its raw frames through the device
+crop), the inference closure (cascade -> SMPL LBS, one skinning kernel
+launch -> J17), the per-sample metrics, and for SLP splits the mesh
 rasterized into a body mask, uncropped on the host and scored against the
 ground-truth mask file.  The pose metrics stay on the device until a drain
 point (every `log_freq` batches and the end), so that batches do not wait
@@ -159,7 +160,7 @@ def _save_artifacts(result_file, dataset_name, offset, batch, preds, smpl_model,
     out_dir = os.path.join(result_file, dataset_name)
     os.makedirs(out_dir, exist_ok=True)
     imgs = np.moveaxis(np.asarray(batch["img"]), 1, -1)  # [bs, res, res, 3]
-    n = min(imgs.shape[0], _DUMPS_PER_BATCH, imgs.shape[0] if count is None else count)
+    n = min(imgs.shape[0] if count is None else count, _DUMPS_PER_BATCH)
     cam_t = weak_perspective_to_cam_t_np(preds["cam"][:n].detach().cpu().numpy(), constants.FOCAL_LENGTH, img_res)
     verts = preds["vertices"][:n].detach().cpu().numpy()
     recon = {k: v[:n].detach().float().cpu().numpy() for k, v in preds.get("recon", {}).items() if k in _RECON_NORM}
@@ -325,7 +326,7 @@ def run_evaluation(
     # last sample, and the padded rows are sliced off.  Every rank takes
     # rank 0's order.
     order = mesh.broadcast_object(np.random.default_rng().permutation(n) if shuffle else np.arange(n))
-    order = np.concatenate([order, np.repeat(order[-1:], -n % batch_size)])
+    order, _ = mesh.pad_to_multiple(order, batch_size)
     loader = CheckpointDataLoader(dataset, batch_size=batch_size, num_workers=num_workers,
                                   checkpoint={"dataset_perm": order}, drop_last=False, rank=rank, world_size=world)
     # Bodies-At-Rest takes the contact channels after the modalities.

@@ -11,7 +11,10 @@ as in the JAX package, whose jitted step sees the whole sharded batch: a
 training BatchNorm2d takes its statistics over every rank's rows, so that
 a step's numbers do not depend on the number of ranks.  torch's
 `SyncBatchNorm` is not used: it refuses CPU tensors, and it updates the
-running variance with the unbiased variance, which flax does not.
+running variance with the unbiased variance, which flax does not.  The
+step's other global semantics (masked counts, dropout masks, the
+replicated fits) and the one departure from JAX (a raise where JAX idles
+devices that do not divide the batch) are set out in `parallel.mesh`.
 """
 
 from __future__ import annotations

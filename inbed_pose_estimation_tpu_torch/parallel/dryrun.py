@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 
 RESULT_TAG = "DRYRUN_RESULT "
+SEED = 0  # the weights (torch's seed), the batch, the fits (SEED + 11), the dropout generator (SEED + 1)
 
 
 def free_port() -> int:
@@ -123,13 +124,18 @@ def dryrun_multichip(n: int = 2, device: str = "cpu", timeout: float = 300.0, ou
     return got
 
 
-def global_batch(spec, batch: int, res: int, rows: int, seed: int) -> dict:
+def seeded_fits(rows: int) -> np.ndarray:
+    """The worker's initial fits store [rows, 82]."""
+    return np.random.default_rng(SEED + 11).normal(0, 0.2, (rows, 82)).astype(np.float32)
+
+
+def global_batch(spec, batch: int, res: int, rows: int) -> dict:
     """A seeded global train batch whose valid rows fall unevenly over the
     ranks: ground-truth SMPL on the first quarter of the rows only, 3D joints
     on all but every third row."""
     from ..tools.bench_train import train_batch
 
-    out = train_batch(spec, batch, res, rows, seed)
+    out = train_batch(spec, batch, res, rows, SEED)
     out["has_smpl"] = (np.arange(batch) < max(1, batch // 4)).astype(np.float32)
     out["has_pose_3d"] = (np.arange(batch) % 3 != 2).astype(np.float32)
     return out
@@ -142,24 +148,21 @@ def worker(argv=None) -> dict:
     ap.add_argument("--res", type=int, default=64)
     ap.add_argument("--batch", type=int, default=4, help="the global batch")
     ap.add_argument("--smplify_iters", type=int, default=2)
-    ap.add_argument("--smplify_threshold", type=float, default=100.0)
     ap.add_argument("--remat", default=None, choices=["stage", "decoder"])
     ap.add_argument("--steps", type=int, default=1)
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--backend", default=None)
-    ap.add_argument("--threads", type=int, default=1, help="torch threads on the CPU")
     ap.add_argument("--dropout", type=float, default=None, help="the IEF dropout rate (the model's default)")
     ap.add_argument("--no_feedback", action="store_true", help="cut the cascade's feedback of recovered images")
     ap.add_argument("--init_out", default=None, help="rank 0 saves the initial weights here")
     ap.add_argument("--out", default=None, help="rank 0 saves its state after the first step here")
     ap.add_argument("--eval", action="store_true", help="also infer one eval batch")
-    ap.add_argument("--profile", action="store_true", help="profile the collectives of one more step")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true", help="time the collectives of one more step")
     args = ap.parse_args(argv)
 
     import torch
 
-    torch.set_num_threads(args.threads)
+    torch.set_num_threads(1)  # CPU ranks share the host's cores
 
     from ..evaluation import load_j_regressor_h36m, make_inference_fn
     from ..fitting import synthetic_gmm_prior
@@ -173,22 +176,21 @@ def worker(argv=None) -> dict:
     cuda = dev.type == "cuda"
     options = build_parser().parse_args(
         ["--name", "dryrun", "--img_res", str(args.res), "--batch_size", str(args.batch), "--run_smplify",
-         "--num_smplify_iters", str(args.smplify_iters), "--smplify_threshold", str(args.smplify_threshold)]
+         "--num_smplify_iters", str(args.smplify_iters)]
         + (["--remat", args.remat] if args.remat else []))
-    torch.manual_seed(args.seed)
+    torch.manual_seed(SEED)
     kw = {} if args.dropout is None else {"dropout_rate": args.dropout}
     model, spec = build_model(args.model, device=dev, img_res=args.res, remat_decoder=args.remat == "decoder", **kw)
     if args.no_feedback:
         spec = dataclasses.replace(spec, cascade_feed_map=())
     smpl = synthetic_smpl_model(0, device=dev)
     rows = 4 * args.batch
-    fits = np.random.default_rng(args.seed + 11).normal(0, 0.2, (rows, 82)).astype(np.float32)
-    state = init_train_state(model, options, fits, seed=args.seed + 1, device=dev)
+    state = init_train_state(model, options, seeded_fits(rows), seed=SEED + 1, device=dev)
     mesh.replicate(state)
     if args.init_out and mesh.rank() == 0:
         torch.save({k: v.cpu() for k, v in model.state_dict().items()}, args.init_out)
     step = make_train_step(model, spec, smpl, synthetic_gmm_prior(device=dev), options, device=dev)
-    batch = mesh.shard_batch(global_batch(spec, args.batch, args.res, rows, args.seed))
+    batch = mesh.shard_batch(global_batch(spec, args.batch, args.res, rows))
     # The rows of this rank with a valid fit in the last step (the mask of
     # the final stage's SMPL losses).
     valid_fit = []

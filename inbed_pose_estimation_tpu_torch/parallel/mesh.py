@@ -31,6 +31,12 @@ buffer of the global shape and summing.
 Without torchrun's environment (`RANK`, `WORLD_SIZE`) no process group is
 made, and every function here is the identity of one process: a rank of
 0, a world of 1, no collective.
+
+The one departure from the JAX package: its `Trainer` and `run_evaluation`
+run the mesh on the largest device count that divides the batch and idle
+the other devices, because a JAX program cannot choose its device count;
+the port's raise at set-up when the world size does not divide the batch,
+because a torchrun user chooses it.
 """
 
 from __future__ import annotations
@@ -77,11 +83,6 @@ def _all_reduce(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def launched() -> bool:
-    """True when torchrun's environment names this process's rank."""
-    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
-
-
 def initialize_distributed(backend: Optional[str] = None, device: Optional[str | torch.device] = None,
                            timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> torch.device:
     """Join the process group that torchrun's environment describes
@@ -95,7 +96,7 @@ def initialize_distributed(backend: Optional[str] = None, device: Optional[str |
     torchrun's environment no group is made and the device is returned as
     given (default "cuda")."""
     dev = torch.device(device if device is not None else "cuda")
-    if not launched():
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         return resolve_device(dev)
     local_rank = int(os.environ.get("LOCAL_RANK", "0"))
     if dev.type == "cuda" and dev.index is None:
@@ -235,18 +236,20 @@ def broadcast_object(obj: Any) -> Any:
 
 
 def _buckets(tensors):
-    """`tensors` in runs of one device and dtype and at most
-    `BUCKET_ELEMENTS` elements (a larger tensor is a run of its own), in
-    order."""
-    bucket, size = [], 0
+    """`tensors` grouped by device and dtype (in the order each first
+    appears), each group cut in order into runs of at most
+    `BUCKET_ELEMENTS` elements (a larger tensor is a run of its own)."""
+    groups: dict = {}
     for t in tensors:
-        if bucket and (size + t.numel() > BUCKET_ELEMENTS or t.dtype != bucket[0].dtype
-                       or t.device != bucket[0].device):
-            yield bucket
-            bucket, size = [], 0
-        bucket.append(t)
-        size += t.numel()
-    if bucket:
+        groups.setdefault((t.device, t.dtype), []).append(t)
+    for group in groups.values():
+        bucket, size = [], 0
+        for t in group:
+            if bucket and size + t.numel() > BUCKET_ELEMENTS:
+                yield bucket
+                bucket, size = [], 0
+            bucket.append(t)
+            size += t.numel()
         yield bucket
 
 
@@ -271,7 +274,7 @@ def sync_gradients(params) -> None:
 
 
 @torch.no_grad()
-def broadcast_(t: torch.Tensor) -> torch.Tensor:
+def _broadcast_(t: torch.Tensor) -> torch.Tensor:
     """Overwrite `t` in place with rank 0's (a host tensor crosses through
     the card under NCCL)."""
     if not is_initialized():
@@ -304,7 +307,7 @@ def replicate(obj) -> Any:
     tensors = _state_tensors(obj)
     for bucket in _buckets(tensors):
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        _unpack(broadcast_(flat), bucket)
+        _unpack(_broadcast_(flat), bucket)
     if not isinstance(obj, torch.nn.Module):
         obj.generator.set_state(tensors[-1])
     return obj
@@ -320,6 +323,6 @@ def same_on_every_rank(obj) -> bool:
     ok = True
     for bucket in _buckets([t.detach() for t in tensors]):
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        ok = torch.equal(broadcast_(flat.clone()), flat) and ok
+        ok = torch.equal(_broadcast_(flat.clone()), flat) and ok
     flag = torch.tensor([0.0 if ok else 1.0], device=_comm_device())
     return _all_reduce(flag).item() == 0.0

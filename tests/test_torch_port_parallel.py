@@ -274,8 +274,8 @@ def test_two_rank_step_matches_the_jax_step_on_a_two_device_mesh(tmp_path, monke
     from inbed_pose_estimation_tpu.train.trainer import make_train_step as j_make_train_step
     from inbed_pose_estimation_tpu_torch.train import build_parser
 
-    batch_size, rows, seed = 4, 16, 0
-    flags = dict(dryrun.DRYRUN_FLAGS, batch=batch_size, dropout=0.0, no_feedback=True, seed=seed)
+    batch_size, rows = 4, 16
+    flags = dict(dryrun.DRYRUN_FLAGS, batch=batch_size, dropout=0.0, no_feedback=True)
     ranks = dryrun.results(dryrun.launch(dryrun.worker_argv(init_out=tmp_path / "init.pt", out=tmp_path / "ranks.pt",
                                                             **flags), RANKS, timeout=TIMEOUT, env=_env(), cwd=REPO))
     init, after = torch.load(tmp_path / "init.pt"), torch.load(tmp_path / "ranks.pt")
@@ -284,9 +284,9 @@ def test_two_rank_step_matches_the_jax_step_on_a_two_device_mesh(tmp_path, monke
     options = build_parser().parse_args(["--name", "dryrun", "--img_res", "64", "--batch_size", str(batch_size),
                                          "--run_smplify", "--num_smplify_iters", "2"])
     spec = build_model("cashmrV2", device="cpu")[1]
-    batch = dryrun.global_batch(spec, batch_size, 64, rows, seed)
+    batch = dryrun.global_batch(spec, batch_size, 64, rows)
     nhwc = {k: jnp.asarray(np.transpose(v, (0, 2, 3, 1)) if v.ndim == 4 else v) for k, v in batch.items()}
-    fits = np.random.default_rng(seed + 11).normal(0, 0.2, (rows, 82)).astype(np.float32)
+    fits = dryrun.seeded_fits(rows)
 
     monkeypatch.setattr(jhmr, "IEFHead", functools.partial(IEFHead, dropout_rate=0.0))
     jmodel, jspec = j_build_model("cashmrV2")
@@ -314,7 +314,7 @@ def test_two_rank_step_matches_the_jax_step_on_a_two_device_mesh(tmp_path, monke
     np.testing.assert_allclose(after["fits"].numpy(), np.asarray(new.fits), atol=FITS_ATOL)
 
 
-# ---------------------------------------------------------------- the drivers
+# ---------------------------------------------------------------- run_evaluation and the CLI
 
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
