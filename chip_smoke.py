@@ -116,10 +116,14 @@ Phases, in order; any failure exits non-zero before the last line:
      launches a step, the epoch's checkpoint); then through the parallel
      API at the CLI's width (cashmrV2, batch 64, 224x224, SMPLify N = 100):
      the step in one process and on one NCCL rank (ms a step with and
-     without the process group, the collectives' ms and bytes of a step),
-     and on two gloo ranks sharing the card (32 rows a rank, uneven valid
-     fits) against the one process's first step at the tests' tolerances,
-     both ranks' states bitwise equal, 206 launches a rank, one eval batch.
+     without the process group, the all-reduces of a step read from a
+     torch.profiler trace of a step with SMPLify at one iteration: their
+     count, bytes and time), and on two gloo
+     ranks sharing the card (32 rows a rank, uneven valid fits) against the
+     one process's first step at the tests' tolerances, the averaged
+     gradient within DP_GRAD_RTOL and its controls beyond it, the fits
+     within DP_FITS_ATOL and the fits scatter left local beyond it, both
+     ranks' states bitwise equal, 206 launches a rank, one eval batch.
      Two ranks on one card check correctness, not scaling; NCCL between
      cards is not reached by one card;
  13. the tools: inside phase 7, tools/loader_bench.py on phase 9's cached
@@ -313,8 +317,17 @@ DP_STEP_FLAGS = {"model": MODEL, "res": RES, "batch": 64, "smplify_iters": 100}
 DP_TIMED_STEPS, DP_TIMEOUT = 3, 600
 DP_ONE_RANK_REL, DP_TWO_RANK_REL = 1e-6, 1e-5
 DP_LR = 5e-5
-DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL, DP_BN_RTOL, DP_BN_ATOL, DP_FITS_ATOL = (
-    1e-4, 1e-4, 1.2 * 2 * DP_LR, 1e-3, 2e-4, 1e-3)
+DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL, DP_BN_RTOL, DP_BN_ATOL = 1e-4, 1e-4, 1.2 * 2 * DP_LR, 1e-3, 2e-4
+# The fits: SMPLify's 100 iterations carry the step's float32 reassociation
+# to 8.77e-4 on the card (PERF.md section 6, every data-parallel run), so the limit
+# is 3.4x that; the fits with rank 1's updates left out of rank 0's store
+# (the scatter left local) read 1.51 and must break it.
+DP_FITS_ATOL = 3e-3
+# The averaged gradient's worst parameter, relative to one process's
+# (`dryrun.gradient_readings`; the tests' limit): 0.113 on the card; its
+# controls (summed, divided twice, rank 0's alone) read 0.52-19.9 and must
+# break it.
+DP_GRAD_RTOL = 0.25
 # A child process that runs one CLI's `main` (argv[1]: train or eval) in a
 # process group and prints its skinning launches and what `main` returned,
 # after the tag.
@@ -1710,7 +1723,16 @@ def dp_step_phase(torch, np, dev, smi):
         for r, (rc, o) in enumerate(runs):
             check(rc == 0, f"the step on 2 gloo ranks: rank {r} exited with {rc}:\n{o[-6000:]}")
         two = dryrun.results(runs)
-        a, b = torch.load(f"{base}/single.pt"), torch.load(f"{base}/ranks.pt")
+        a, b = torch.load(f"{base}/single.pt", map_location=dev), torch.load(f"{base}/ranks.pt", map_location=dev)
+        grads = dryrun.gradient_readings(b, a, 2)
+        # The control of the fits: rank 0's store had the scatter stayed
+        # local, without rank 1's rows (those rank 0 does not also hold).
+        own = set(two[0]["sample_index"])
+        rows = torch.tensor(sorted(set(two[1]["sample_index"]) - own))
+        local_fits = b["fits"].clone()
+        local_fits[rows] = torch.from_numpy(dryrun.seeded_fits(len(local_fits)))[rows].to(dev)
+        fits_control = (local_fits - a["fits"]).abs().max().item()
+        del a["grads"], b["grads"], b["local_grads"]
 
     n = DP_STEP_FLAGS["smplify_iters"]
     timed = lambda r: sum(r["step_ms"][1:]) / (len(r["step_ms"]) - 1)  # noqa: E731
@@ -1719,6 +1741,10 @@ def dp_step_phase(torch, np, dev, smi):
         step_ms_with_group=one["step_ms"], step_ms_without_group=single["step_ms"],
         group_cost_ms=timed(one) - timed(single), collectives=one["collectives"], single_process_s=single_s,
         card=smi)
+    for r in [one] + two:
+        c = r["collectives"]
+        check(c["all_reduces"] > 0 and c["bytes_all_reduced"] >= c["gradient_bytes"],
+              f"the trace of rank {r['rank']} ({r['backend']}) holds too few all-reduces: {c}")
     check(one["backend"] == "nccl" and single["backend"] is None, "the 1-rank step did not run on NCCL")
     check(one["launches_per_step"] == single["launches_per_step"] == 6 + 2 * n,
           f"skinning launches a step: {one['launches_per_step']} (NCCL), {single['launches_per_step']} (none)")
@@ -1740,13 +1766,19 @@ def dp_step_phase(torch, np, dev, smi):
     log("dp_step_two_ranks", flags=DP_STEP_FLAGS, backend=two[0]["backend"], device=two[0]["device"],
         rows_per_rank=[r["local_rows"] for r in two], valid_fit_rows=[r["valid_fit_rows"] for r in two],
         launches_per_rank=[r["launches_per_step"] for r in two], eval_launches_per_rank=[r["eval_launches"] for r in two],
-        loss_rel=loss_rel, max_abs=dist, fits_max_abs=fits_err, bitwise_equal=[r["state_same_on_every_rank"] for r in two],
+        loss_rel=loss_rel, max_abs=dist, fits_max_abs=fits_err, fits_limit=DP_FITS_ATOL,
+        fits_control_scatter_local=fits_control, fits_control_rows=len(rows), gradient=grads,
+        gradient_limit=DP_GRAD_RTOL, bitwise_equal=[r["state_same_on_every_rank"] for r in two],
         step_ms=[r["step_ms"] for r in two], collectives=[r["collectives"] for r in two], run_s=two_s,
         note="two ranks share one card and gloo stages through the host: correctness, not scaling", card=smi)
     check(all(r["state_same_on_every_rank"] for r in two), "2 ranks: the states are not bitwise equal")
     check(two[0]["metrics"] == two[1]["metrics"], "2 ranks: the global metrics differ between the ranks")
     check(loss_rel <= DP_LOSS_RTOL, f"2 ranks vs 1 process: loss rel {loss_rel}")
     check(fits_err <= DP_FITS_ATOL, f"2 ranks vs 1 process: fits {fits_err}")
+    check(fits_control > DP_FITS_ATOL, f"the fits scatter left local meets the fits limit: {fits_control}")
+    check(grads["sound"][0] <= DP_GRAD_RTOL, f"2 ranks vs 1 process: gradient {grads['sound']}")
+    check(min(grads["controls"].values()) > DP_GRAD_RTOL,
+          f"a gradient control meets the gradient limit: {grads['controls']}")
     check([r["launches_per_step"] for r in two] == [6 + 2 * n] * 2, "2 ranks: skinning launches a step per rank")
     check([r["eval_launches"] for r in two] == [1, 1] and all(r["eval_finite"] for r in two), "2 ranks: eval batch")
     check(len({r["valid_fit_rows"] for r in two}) == 2, "2 ranks: the valid fits fall evenly; the batch must split them")

@@ -322,11 +322,13 @@ def run_evaluation(
                                      faces=smpl_model.faces.cpu().numpy(), render_labels=eval_parts, device=dev)
     jm_gt = np.asarray(constants.J24_TO_J17)
 
-    # Every sample is scored: the order is padded to whole batches with its
-    # last sample, and the padded rows are sliced off.  Every rank takes
-    # rank 0's order.
+    # Every sample is scored, and the padded rows are sliced off.  Every rank
+    # takes rank 0's order; in a process group it is padded to whole batches
+    # with its last sample, so that each rank loads its rows of the tail
+    # batch, and one process pads its tail batch on the host instead.
     order = mesh.broadcast_object(np.random.default_rng().permutation(n) if shuffle else np.arange(n))
-    order, _ = mesh.pad_to_multiple(order, batch_size)
+    if world > 1:
+        order, _ = mesh.pad_to_multiple(order, batch_size)
     loader = CheckpointDataLoader(dataset, batch_size=batch_size, num_workers=num_workers,
                                   checkpoint={"dataset_perm": order}, drop_last=False, rank=rank, world_size=world)
     # Bodies-At-Rest takes the contact channels after the modalities.
@@ -354,6 +356,7 @@ def run_evaluation(
         bs = int(np.clip(n - lo, 0, local_bs))
         hi = lo + bs
         dev_batch = {k: v for k, v in batch.items() if not isinstance(v, list)}
+        dev_batch, _ = mesh.pad_to_multiple(dev_batch, local_bs)  # one process's tail batch
         if pre_fn is not None:  # no flip, no channel noise at eval
             dev_batch.update(pre_fn({k: dev_batch["raw_" + k] for k in spec.modalities if "raw_" + k in dev_batch},
                                     dev_batch["center"], dev_batch["scale"], np.zeros(local_bs, np.float32),

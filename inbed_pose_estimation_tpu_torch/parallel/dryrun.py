@@ -11,16 +11,22 @@ run instead of hanging it.
 
     python -m inbed_pose_estimation_tpu_torch.parallel.dryrun [--ranks 2] [--device cpu]
 
+The ranks run on cards (`cuda:<LOCAL_RANK>`, NCCL, one card a rank) unless
+`--device cpu` asks for gloo on the CPU.
+
 The worker (`--worker`, one rank) is also what the tests and the card's
 smoke script drive at other sizes: it builds the model and a state from a
 seed, takes its rows of a seeded global batch, runs `--steps` train steps,
 reports the first step's global metrics and skinning launches and the ms
 of every step, checks that every rank ends with rank 0's state bitwise,
-and with `--out` rank 0 saves its state after the first step, for a
-comparison with one process's run of the same step (the worker without
-torchrun's environment).  `--profile` runs one more step with each
-all-reduce timed alone (`mesh.timing_collectives`: the device drained
-before and after it) and reports their ms and the bytes all-reduced; `--eval` infers the batch once more in eval mode.
+and with `--out` rank 0 saves its state after the first step with the
+gradient Adam took (averaged over the ranks) and its own gradient before
+the average, for a comparison with one process's run of the same step (the
+worker without torchrun's environment).  `--profile` runs one more step
+under torch.profiler, with SMPLify at one iteration (a step's all-reduces
+do not depend on SMPLify's iterations, whose 10^5 launches at N=100 would
+fill the trace), and reads the all-reduces from its trace
+(`collective_readings`); `--eval` infers the batch once more in eval mode.
 """
 
 from __future__ import annotations
@@ -107,11 +113,14 @@ def worker_argv(**flags) -> list:
 DRYRUN_FLAGS = {"model": "cashmrV2", "res": 64, "smplify_iters": 2}
 
 
-def dryrun_multichip(n: int = 2, device: str = "cpu", timeout: float = 300.0, out: Optional[str] = None) -> list:
+def dryrun_multichip(n: int = 2, device: str = "cuda", timeout: float = 300.0, out: Optional[str] = None) -> list:
     """One data-parallel train step and one eval batch of cashmrV2 at RES 64
-    on `n` ranks (gloo on the CPU, NCCL on cards); returns each rank's
-    result, after checking that all ranks agree.  With `out`, rank 0 saves
-    its state there (`worker --out`)."""
+    on `n` ranks (NCCL on `n` cards, or gloo with `device="cpu"`); returns
+    each rank's result, after checking that all ranks agree.  With `out`,
+    rank 0 saves its state there (`worker --out`)."""
+    from ..device import resolve_device
+
+    resolve_device(device)  # raises here, before any rank starts, without a card
     runs = launch(worker_argv(batch=2 * n, device=device, eval=True, out=out, **DRYRUN_FLAGS),
                   n, timeout=timeout, env=dict(os.environ, OMP_NUM_THREADS="1"))
     got = results(runs)
@@ -141,6 +150,68 @@ def global_batch(spec, batch: int, res: int, rows: int) -> dict:
     return out
 
 
+def gradient_distance(got: dict, want: dict) -> tuple:
+    """The worst parameter's relative distance between two gradients keyed
+    by name, ||got - want|| / ||want|| (0 where both are zero), and its
+    name."""
+    import torch
+
+    worst = (0.0, None)
+    for k, w in want.items():
+        w = torch.as_tensor(w).double()
+        num = torch.linalg.vector_norm(torch.as_tensor(got[k]).to(w.device).double() - w).item()
+        den = torch.linalg.vector_norm(w).item()
+        d = num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+        worst = max(worst, (d, k), key=lambda x: x[0])
+    return worst
+
+
+def gradient_readings(ranks: dict, single: dict, world: int) -> dict:
+    """The gradient of a `world`-rank step (`ranks`, rank 0's `--out`)
+    against one process's (`single`): `gradient_distance` of the averaged
+    gradient, and of three controls a check must tell from it: the
+    gradient summed over the ranks and divided twice (a wrong world-size
+    factor), and rank 0's own gradient before the average."""
+    got, want = ranks["grads"], single["grads"]
+    if set(got) != set(want):
+        raise ValueError(f"the gradients name different parameters: {sorted(set(got) ^ set(want))[:5]}")
+    return {"sound": gradient_distance(got, want),
+            "controls": {"summed": gradient_distance({k: g * world for k, g in got.items()}, want)[0],
+                         "divided_twice": gradient_distance({k: g / world for k, g in got.items()}, want)[0],
+                         "rank_0_alone": gradient_distance(ranks["local_grads"], want)[0]}}
+
+
+# Bytes of an element, by the dtype names of the profiler's records.
+_DTYPE_BYTES = {"float": 4, "double": 8, "c10::BFloat16": 2, "c10::Half": 2, "long int": 8, "int": 4}
+
+
+def collective_readings(prof) -> dict:
+    """The all-reduces of a torch.profiler trace (recorded with shapes):
+    the backend's own spans (`nccl:all_reduce`, `gloo:all_reduce`), their
+    count, the bytes of their inputs and their summed host time, and the
+    summed device time of NCCL's kernels.  A gloo all-reduce runs on the
+    host (a CUDA tensor crosses through it), so it has no kernel."""
+    import torch
+
+    spans, nbytes, host_ns, kernel_ns = 0, 0, 0, 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if "nccl" in name.lower():
+                kernel_ns += e.duration_ns()
+        elif name in ("nccl:all_reduce", "gloo:all_reduce"):
+            spans += 1
+            host_ns += e.duration_ns()
+            for shape, dtype in zip(e.shapes(), e.dtypes()):
+                if not shape:  # not a tensor
+                    continue
+                if dtype not in _DTYPE_BYTES:
+                    raise ValueError(f"{name}: an input of dtype {dtype!r}")
+                nbytes += int(np.prod(shape)) * _DTYPE_BYTES[dtype]
+    return {"all_reduces": spans, "bytes_all_reduced": nbytes, "host_ms": host_ns / 1e6,
+            "nccl_kernel_ms": kernel_ns / 1e6}
+
+
 def worker(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--worker", action="store_true")
@@ -150,19 +221,17 @@ def worker(argv=None) -> dict:
     ap.add_argument("--smplify_iters", type=int, default=2)
     ap.add_argument("--remat", default=None, choices=["stage", "decoder"])
     ap.add_argument("--steps", type=int, default=1)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None)
     ap.add_argument("--dropout", type=float, default=None, help="the IEF dropout rate (the model's default)")
     ap.add_argument("--no_feedback", action="store_true", help="cut the cascade's feedback of recovered images")
     ap.add_argument("--init_out", default=None, help="rank 0 saves the initial weights here")
-    ap.add_argument("--out", default=None, help="rank 0 saves its state after the first step here")
+    ap.add_argument("--out", default=None, help="rank 0 saves its state and gradients after the first step here")
     ap.add_argument("--eval", action="store_true", help="also infer one eval batch")
-    ap.add_argument("--profile", action="store_true", help="time the collectives of one more step")
+    ap.add_argument("--profile", action="store_true", help="trace the collectives of one more step")
     args = ap.parse_args(argv)
 
     import torch
-
-    torch.set_num_threads(1)  # CPU ranks share the host's cores
 
     from ..evaluation import load_j_regressor_h36m, make_inference_fn
     from ..fitting import synthetic_gmm_prior
@@ -173,6 +242,7 @@ def worker(argv=None) -> dict:
     from . import mesh
 
     dev = mesh.initialize_distributed(backend=args.backend, device=args.device)
+    torch.set_num_threads(1)  # CPU ranks share the host's cores
     cuda = dev.type == "cuda"
     options = build_parser().parse_args(
         ["--name", "dryrun", "--img_res", str(args.res), "--batch_size", str(args.batch), "--run_smplify",
@@ -200,6 +270,18 @@ def worker(argv=None) -> dict:
         return plain_smpl_losses(*a)
 
     plain_smpl_losses, losses.smpl_losses = losses.smpl_losses, smpl_losses
+    # This rank's gradient of the first step before the average over the
+    # ranks (what Adam would take without it), by parameter name.
+    names = {id(p): k for k, p in model.named_parameters()}
+    local_grads = {}
+
+    def sync_gradients(params):
+        params = list(params)
+        if args.out and mesh.rank() == 0 and mesh.is_initialized() and not local_grads:
+            local_grads.update((names[id(p)], p.grad.detach().cpu().clone()) for p in params)
+        plain_sync_gradients(params)
+
+    plain_sync_gradients, mesh.sync_gradients = mesh.sync_gradients, sync_gradients
 
     def sync():
         if cuda:
@@ -207,7 +289,8 @@ def worker(argv=None) -> dict:
 
     result = {"rank": mesh.rank(), "world_size": mesh.world_size(), "device": str(dev),
               "backend": torch.distributed.get_backend() if mesh.is_initialized() else None,
-              "local_rows": len(batch["sample_index"]), "step_ms": []}
+              "local_rows": len(batch["sample_index"]), "sample_index": [int(i) for i in batch["sample_index"]],
+              "step_ms": []}
     for i in range(args.steps):
         sync()
         t0 = time.perf_counter()
@@ -221,23 +304,27 @@ def worker(argv=None) -> dict:
                           valid_fit_rows=valid_fit[0])
             if args.out and mesh.rank() == 0:
                 torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}, "fits": state.fits.cpu(),
-                            "metrics": result["metrics"]}, args.out)
+                            "grads": {k: p.grad.cpu() for k, p in model.named_parameters() if p.requires_grad},
+                            "local_grads": local_grads, "metrics": result["metrics"]}, args.out)
 
     # Parameters, BatchNorm statistics, Adam's moments and steps, the fits
     # and the dropout generator.
     result["state_same_on_every_rank"] = mesh.same_on_every_rank(state)
 
     if args.profile:
-        mesh.reduced_bytes, mesh.collective_seconds, mesh.timing_collectives = 0, 0.0, True
+        from torch.profiler import ProfilerActivity, profile
+
+        short = argparse.Namespace(**dict(vars(options), num_smplify_iters=1))
+        profiled_step = make_train_step(model, spec, smpl, synthetic_gmm_prior(device=dev), short, device=dev)
         sync()
         t0 = time.perf_counter()
-        state, _ = step(state, batch)
-        sync()
-        mesh.timing_collectives = False
-        result["collectives"] = {
-            "ms": 1e3 * mesh.collective_seconds, "step_ms": 1e3 * (time.perf_counter() - t0),
-            "bytes_all_reduced": mesh.reduced_bytes,
-            "gradient_bytes": sum(p.numel() * p.element_size() for p in model.parameters() if p.requires_grad)}
+        with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []),
+                     record_shapes=True) as prof:
+            state, _ = profiled_step(state, batch)
+            sync()
+        result["collectives"] = dict(
+            collective_readings(prof), profiled_step_ms=1e3 * (time.perf_counter() - t0),
+            gradient_bytes=sum(p.numel() * p.element_size() for p in model.parameters() if p.requires_grad))
 
     if args.eval:
         infer = make_inference_fn(model, spec, smpl, load_j_regressor_h36m(num_vertices=smpl.v_template.shape[0]),
@@ -256,7 +343,7 @@ def worker(argv=None) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=2)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--timeout", type=float, default=300.0)
     args = ap.parse_args(argv)
     for r in dryrun_multichip(args.ranks, device=args.device, timeout=args.timeout):

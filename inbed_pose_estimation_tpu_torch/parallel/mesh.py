@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import datetime
 import os
-import time
 from typing import Any, Optional
 
 import numpy as np
@@ -58,28 +57,9 @@ DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
 # Gradients are all-reduced in flat buckets of at most this many elements.
 BUCKET_ELEMENTS = 1 << 24
 
-# What this process has handed to all_reduce: bytes, and, while
-# `timing_collectives` is set, the seconds each call took with the device
-# drained before and after it (a measurement that serializes the step).
-# The dry run's worker reads and resets them around one step.
-reduced_bytes = 0
-collective_seconds = 0.0
-timing_collectives = False
-
-
 def _all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """SUM-all-reduce `t` in place, counted in `reduced_bytes`."""
-    global reduced_bytes, collective_seconds
-    reduced_bytes += t.numel() * t.element_size()
-    if not timing_collectives:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
-        return t
-    sync = torch.cuda.synchronize if t.device.type == "cuda" else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
+    """SUM-all-reduce `t` in place."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM)
-    sync()
-    collective_seconds += time.perf_counter() - t0
     return t
 
 

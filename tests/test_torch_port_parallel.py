@@ -39,6 +39,14 @@ TIMEOUT = 300  # seconds a child may run; the process group's own is mesh.DEFAUL
 # (tests/test_train_step.py::test_sync_bn_device_count_equivalence).
 LR = 5e-5
 LOSS_RTOL, PARAM_RTOL, PARAM_ATOL, BN_RTOL, BN_ATOL, FITS_ATOL = 1e-4, 1e-4, 1.2 * 2 * LR, 1e-3, 2e-4, 1e-3
+# One Adam step moves a parameter by at most lr whatever its gradient, so
+# the parameters cannot show the gradient: it is compared itself, the worst
+# parameter's ||g - g_1|| / ||g_1|| (`dryrun.gradient_distance`).  At random
+# weights this model's float32 gradient carries cancellation in
+# BatchNorm's backward: the global BatchNorm's formula alone, at world size
+# 1, moves cashmrV2's worst parameter by 0.116.  The controls a wrong
+# world-size factor gives read 0.51 and more.
+GRAD_RTOL = 0.25
 
 
 def _env(**extra):
@@ -180,11 +188,11 @@ def steps(tmp_path_factory):
     batch), and the same step in one process; rank 0's state and the single
     process's saved."""
     out = tmp_path_factory.mktemp("steps")
-    single = subprocess.run([sys.executable] + dryrun.worker_argv(batch=4, out=out / "single.pt",
+    single = subprocess.run([sys.executable] + dryrun.worker_argv(batch=4, device="cpu", out=out / "single.pt",
                                                                   **dryrun.DRYRUN_FLAGS),
                             capture_output=True, text=True, timeout=TIMEOUT, env=_env(), cwd=REPO)
     assert single.returncode == 0, single.stdout[-4000:] + single.stderr[-4000:]
-    ranks = dryrun.dryrun_multichip(RANKS, out=str(out / "ranks.pt"), timeout=TIMEOUT)
+    ranks = dryrun.dryrun_multichip(RANKS, device="cpu", out=str(out / "ranks.pt"), timeout=TIMEOUT)
     return {"single": dryrun.results([(0, single.stdout)])[0], "ranks": ranks,
             "single_state": torch.load(out / "single.pt"), "ranks_state": torch.load(out / "ranks.pt")}
 
@@ -216,6 +224,21 @@ def test_two_rank_step_matches_one_process(steps):
                                     **dist, "fits": (b["fits"] - a["fits"]).abs().max().item()})
 
 
+def _check_gradients(ranks_state, single_state):
+    """The 2-rank step's averaged gradient against one process's, and the
+    controls (`dryrun.gradient_readings`) that the limit must fail."""
+    got = dryrun.gradient_readings(ranks_state, single_state, RANKS)
+    assert got["sound"][0] <= GRAD_RTOL, got
+    assert min(got["controls"].values()) > GRAD_RTOL, got
+    return got
+
+
+def test_two_rank_gradient_matches_one_process(steps):
+    """The gradient Adam took on 2 ranks (averaged) is one process's, and
+    a gradient summed, divided twice or left on rank 0 is not."""
+    print("2 ranks vs 1 process, gradient:", _check_gradients(steps["ranks_state"], steps["single_state"]))
+
+
 def test_two_ranks_end_the_step_with_bitwise_equal_states(steps):
     """Parameters, BatchNorm statistics, Adam's moments and step, the fits
     and the dropout generator: every rank holds rank 0's, bit for bit."""
@@ -231,7 +254,7 @@ def test_two_rank_step_with_stage_remat_matches_one_process(tmp_path):
     BatchNorm sums of its forward (no collective in the recompute) and
     rewinds the generator that draws the global dropout masks: hmr's 2-rank
     step with `--remat` is one process's step without it."""
-    flags = {"model": "hmr", "res": 64, "batch": 4, "smplify_iters": 2}
+    flags = {"model": "hmr", "res": 64, "batch": 4, "smplify_iters": 2, "device": "cpu"}
     single = subprocess.run([sys.executable] + dryrun.worker_argv(out=tmp_path / "single.pt", **flags),
                             capture_output=True, text=True, timeout=TIMEOUT, env=_env(), cwd=REPO)
     assert single.returncode == 0, single.stdout[-4000:] + single.stderr[-4000:]
@@ -245,6 +268,8 @@ def test_two_rank_step_with_stage_remat_matches_one_process(tmp_path):
         bn = k.endswith(("running_mean", "running_var", "num_batches_tracked"))
         np.testing.assert_allclose(b["model"][k].double().numpy(), v.double().numpy(),
                                    rtol=BN_RTOL if bn else PARAM_RTOL, atol=BN_ATOL if bn else PARAM_ATOL, err_msg=k)
+    # The recompute's replayed statistics carry the gradient.
+    print("2 ranks with remat vs 1 process, gradient:", _check_gradients(b, a))
 
 
 def test_dryrun_multichip_completes(steps):
@@ -275,7 +300,7 @@ def test_two_rank_step_matches_the_jax_step_on_a_two_device_mesh(tmp_path, monke
     from inbed_pose_estimation_tpu_torch.train import build_parser
 
     batch_size, rows = 4, 16
-    flags = dict(dryrun.DRYRUN_FLAGS, batch=batch_size, dropout=0.0, no_feedback=True)
+    flags = dict(dryrun.DRYRUN_FLAGS, batch=batch_size, dropout=0.0, no_feedback=True, device="cpu")
     ranks = dryrun.results(dryrun.launch(dryrun.worker_argv(init_out=tmp_path / "init.pt", out=tmp_path / "ranks.pt",
                                                             **flags), RANKS, timeout=TIMEOUT, env=_env(), cwd=REPO))
     init, after = torch.load(tmp_path / "init.pt"), torch.load(tmp_path / "ranks.pt")
@@ -312,6 +337,17 @@ def test_two_rank_step_matches_the_jax_step_on_a_two_device_mesh(tmp_path, monke
         for k, v in want.items():
             np.testing.assert_allclose(have[k], v, rtol=rtol, atol=atol, err_msg=k)
     np.testing.assert_allclose(after["fits"].numpy(), np.asarray(new.fits), atol=FITS_ATOL)
+    # The gradient: JAX's Adam holds (1 - b1) g after its first step.
+    mu = next(s.mu for s in jax.tree_util.tree_leaves(new.opt_state, is_leaf=lambda x: hasattr(x, "mu"))
+              if hasattr(s, "mu"))
+    leaves = lambda tree: {jax.tree_util.keystr(p): np.asarray(v)  # noqa: E731
+                           for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    port_grads = leaves(convert_torch_state_dict(dict(after["model"], **after["grads"]))["params"])
+    jax_grads = {k: v / 0.1 for k, v in leaves(mu).items()}
+    assert set(port_grads) == set(jax_grads)
+    dist = dryrun.gradient_distance(port_grads, jax_grads)
+    print("2 ranks vs JAX's 2-device step, gradient:", dist)
+    assert dist[0] <= GRAD_RTOL, dist
 
 
 # ---------------------------------------------------------------- run_evaluation and the CLI
@@ -393,6 +429,28 @@ def test_run_evaluation_on_two_ranks_matches_one_process(tree, tmp_path):
     # The dumps of the batch's first samples, each drawn once, by its rank.
     names = sorted(os.listdir(tmp_path / "ranks_res" / "slp-4mod-uncover"))
     assert names == sorted(os.listdir(tmp_path / "one_res" / "slp-4mod-uncover"))
+
+
+def test_run_evaluation_in_one_process_decodes_each_sample_once(tree, tmp_path):
+    """Without a process group the split is not padded before loading: the
+    tail batch's 1 sample is decoded once and padded on the host."""
+    class Opt:
+        img_res = 64
+
+    class Counting(BaseDataset):
+        calls = []
+
+        def __getitem__(self, i):
+            self.calls.append(int(i))
+            return super().__getitem__(i)
+
+    dataset = Counting(Opt(), "slp-4mod-uncover", is_train=False)
+    torch.manual_seed(0)
+    model, spec = build_model("hmr", device="cpu")
+    got = run_evaluation(model, spec, "slp-4mod-uncover", dataset, synthetic_smpl_model(0, device="cpu"),
+                         batch_size=4, img_res=64, num_workers=1, device="cpu")
+    assert sorted(Counting.calls) == list(range(5)) and got["timing"]["batches"] == 2
+    assert np.isfinite(got["mpjpe"])
 
 
 _TRAIN = r"""

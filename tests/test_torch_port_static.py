@@ -60,8 +60,8 @@ def test_resolve_device_raises_without_cuda_and_pins_f32(monkeypatch):
 @pytest.mark.parametrize("entry", ["build_model", "synthetic_smpl_model", "make_inference_fn", "synthetic_gmm_prior",
                                    "make_train_step", "init_train_state", "run_evaluation", "make_device_preprocess",
                                    "PartRenderer", "eval_gpu.main", "train_gpu.main", "Trainer",
-                                   "initialize_distributed", "latency_mode.main", "profile_mfu.main",
-                                   "profile_mfu.main --train"])
+                                   "initialize_distributed", "dryrun.main", "dryrun.worker", "latency_mode.main",
+                                   "profile_mfu.main", "profile_mfu.main --train"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, entry):
     _cuda_missing(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -90,6 +90,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
             from inbed_pose_estimation_tpu_torch.parallel import initialize_distributed
 
             initialize_distributed()
+        elif entry.startswith("dryrun."):
+            from inbed_pose_estimation_tpu_torch.parallel import dryrun
+
+            dryrun.main([]) if entry == "dryrun.main" else dryrun.worker(["--worker"])
         elif entry == "latency_mode.main":
             from inbed_pose_estimation_tpu_torch.tools import latency_mode
 
