@@ -127,8 +127,16 @@ Phases, in order; any failure exits non-zero before the last line:
      Two ranks on one card check correctness, not scaling; NCCL between
      cards is not reached by one card;
  13. the tools: inside phase 7, tools/loader_bench.py on phase 9's cached
-     split; tools/latency_mode.py at batch 32, tools/profile_mfu.py's
-     inference at batches 32 and 64 and its train step at 64.
+     split (it raises if the dataset refuses the cache);
+     tools/latency_mode.py at batch 32, tools/profile_mfu.py's inference at
+     batches 32 and 64 and its train step at 64, `mfu` and `mfu_counted`
+     each in (0, 1);
+ 14. the body-mask tool: inside phase 6, tools/get_mask.py over one
+     subject's uncovered frames of its tree (45 at 1024 x 576), copied into
+     a temporary root: one mask a frame at the frame's size, uint8 0 / 255,
+     equal to `fallback_mask` of the frame in this process, a file for
+     every uncover sample of the subject where the eval driver looks for
+     it, and the seconds a frame.
 Then the seconds of each phase, the kernel table as one JSON line, the
 nvidia-smi line, and {"ok": true, "device": ...} as the last line.
 """
@@ -391,6 +399,9 @@ mesh.shutdown()
 LATENCY_ARGS = ["--batch", "32", "--iters", "10"]
 LOADER_BENCH_ARGS = ["--dataset", BAR_TRAIN_SPLIT, "--batch_size", "4", "--rounds", "2", "--batches", "2"]
 MFU_ARGS, MFU_TRAIN_ARGS = ["--batches", "32,64", "--iters", "3"], ["--train", "--batches", "64", "--iters", "3"]
+
+# Phase 14: the body-mask tool on this subject of phase 6's tree.
+GET_MASK_SUBJECT = 1
 
 
 def fail(msg: str) -> None:
@@ -672,9 +683,10 @@ def _point_env_at(env: dict) -> None:
 
 
 def eval_driver_phase(torch, np, dev, smi, cuda_ms):
-    """Phase 6 (and phase 8's, 9's and 11's eval CLI runs on its tree);
-    returns the skinning launches of the driver's run, its batch count, the
-    launches of phase 8's runs by model, of phase 9's and of phase 11's."""
+    """Phase 6 (and phase 8's, 9's, 11's and 12's eval CLI runs and phase
+    14's body-mask tool on its tree); returns the skinning launches of the
+    driver's run, its batch count, the launches of phase 8's runs by model,
+    of phase 9's, of phase 11's and of phase 12's."""
     import tempfile
     import types
 
@@ -766,6 +778,8 @@ def eval_driver_phase(torch, np, dev, smi, cuda_ms):
             # Phase 12's eval runs in a process group on this tree.
             torch.cuda.empty_cache()
             dp_launches = dp_eval_driver(torch, np, dev, smi, dp_want)
+            # Phase 14's body-mask tool on this tree's frames.
+            get_mask_driver(np, smi)
 
             # The driver's parts at B=32, 224^2, on the first batch of a split.
             # The host time of one batch on the loader's 8 threads, and of
@@ -1797,6 +1811,50 @@ def loader_bench_driver(np, smi, base):
           and all(np.isfinite(c["median_ms"]) for c in got["configs"].values()), "loader_bench: configs")
 
 
+def get_mask_driver(np, smi):
+    """Phase 14 on phase 6's tree (INBED_* pointed at it): tools/get_mask.py
+    over GET_MASK_SUBJECT's RGB/uncover frames, copied into a temporary
+    root.  One mask a frame, at the frame's height x width, uint8 with
+    values in {0, 255}, equal to `fallback_mask` of the frame read in this
+    process (the CLI's read and write lose nothing), and a file for every
+    uncover sample of the subject where the eval driver's mask-path
+    rewrite looks for it."""
+    import shutil
+    import tempfile
+
+    from inbed_pose_estimation_tpu_torch import config
+    from inbed_pose_estimation_tpu_torch.data.image_io import read_gray_u8, read_rgb_u8
+    from inbed_pose_estimation_tpu_torch.evaluation.evaluate import _gt_mask_path
+    from inbed_pose_estimation_tpu_torch.tools import get_mask
+
+    sub = f"{GET_MASK_SUBJECT:05d}"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_get_mask_") as root:
+        frames_dir = os.path.join(root, sub, "RGB", "uncover")
+        shutil.copytree(os.path.join(config.dataset_folder("slp"), sub, "RGB", "uncover"), frames_dir)
+        frames = sorted(os.listdir(frames_dir))
+        t0 = time.perf_counter()
+        written = get_mask.main(["--slp_root", root, "--subjects", f"{GET_MASK_SUBJECT}-{GET_MASK_SUBJECT}"])
+        seconds = time.perf_counter() - t0
+        check(len(written) == len(frames) > 0, f"get_mask: {len(written)} masks for {len(frames)} frames")
+        body = []
+        for fn in frames:
+            frame = read_rgb_u8(os.path.join(frames_dir, fn))
+            mask = read_gray_u8(os.path.join(root, sub, "masks", "uncover", fn.replace("image_", "")))
+            check(mask is not None and mask.dtype == np.uint8 and mask.shape == frame.shape[:2]
+                  and set(np.unique(mask).tolist()) <= {0, 255}, f"get_mask: the mask of {fn}")
+            check(np.array_equal(mask, get_mask.fallback_mask(frame)),
+                  f"get_mask: the mask of {fn} differs from fallback_mask of the frame")
+            body.append(float((mask == 255).mean()))
+        with np.load(config.dataset_file("slp-4mod-uncover")) as index:
+            names = [str(n) for n in index["imgname"] if str(n).split("/")[0] == sub]
+        missing = [n for n in names if not os.path.exists(_gt_mask_path(os.path.join(root, n)))]
+        log("get_mask", subject=sub, frames=len(frames), frame_hw=list(frame.shape[:2]), seconds=seconds,
+            seconds_per_frame=seconds / len(frames), body_share=[min(body), max(body)],
+            uncover_samples=len(names), card=smi)
+        check(len(names) == EVAL_SAMPLES and not missing,
+              f"get_mask: {len(missing)} of {len(names)} uncover samples have no mask where the eval driver looks")
+
+
 def tools_phase(torch, np, dev, smi):
     """Phase 13: latency_mode and profile_mfu on the card."""
     from inbed_pose_estimation_tpu_torch.tools import latency_mode, profile_mfu
@@ -1808,8 +1866,8 @@ def tools_phase(torch, np, dev, smi):
     for args in (MFU_ARGS, MFU_TRAIN_ARGS):
         got = profile_mfu.main(args)
         log("profile_mfu", args=args, rows=got, card=smi)
-        check(all(r["mfu"] is not None and 0 < r["mfu"] < 1 and r["device"] == torch.cuda.get_device_name(0)
-                  for r in got), f"profile_mfu {args}: MFU")
+        check(all(r[k] is not None and 0 < r[k] < 1 for r in got for k in ("mfu", "mfu_counted"))
+              and all(r["device"] == torch.cuda.get_device_name(0) for r in got), f"profile_mfu {args}: MFU")
         torch.cuda.empty_cache()
 
 
@@ -2550,7 +2608,8 @@ def main() -> int:
     launches_train_step = train_phase(torch, np, dev, smi, smpl, cuda_ms)
     lap("phase_5")
 
-    # 6. eval driver (with phase 8's, 9's, 11's and 12's eval CLI runs on its tree)
+    # 6. eval driver (with phase 8's, 9's, 11's and 12's eval CLI runs and
+    # phase 14's body-mask tool on its tree)
     (launches_eval_driver, eval_driver_batches, launches_families_eval_driver, launches_bar_eval_driver,
      launches_dumps_eval_driver, (launches_dp_eval_one_rank, launches_dp_eval_per_rank)) = eval_driver_phase(
         torch, np, dev, smi, cuda_ms)

@@ -1,4 +1,4 @@
-from .attention import CrossAttention
+from .attention import CrossAttention, SelfAttention
 from .bodies_at_rest import BodiesAtRest
 from .backbone import Bottleneck, ResNet50Trunk
 from .cascade import cascade_apply
@@ -20,6 +20,7 @@ __all__ = [
     "Reconstruct",
     "ResBlock",
     "ResNet50Trunk",
+    "SelfAttention",
     "TwoStageFusion",
     "build_model",
     "cascade_apply",

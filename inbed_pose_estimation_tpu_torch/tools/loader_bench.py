@@ -6,11 +6,16 @@ flags and output.  It times only the production of training batches
 (decode, crop and resize, augmentation, collate) that `--crop_cache` and
 `--fast_preprocess` change, with no device in the loop, so it takes no
 `--device`.  The configurations are built once, then timed in interleaved
-rounds (A, B, C, A, B, C, ...) so that slow drift in the host's load falls
-on all of them; the augmentation generator is reseeded every round, so
-that every configuration draws the same augmentations.  Each batch is one
-synchronous, timed call; the line reports the median and interquartile
-range per batch over all rounds.
+rounds, the order turned by one configuration each round (A, B, C, then
+B, C, A, ...), so that slow drift in the host's load falls on all of them
+and no configuration always reads the files that another one has just
+pulled into the page cache; the augmentation generator is reseeded every
+round, so that every configuration draws the same augmentations.  Each
+batch is one synchronous, timed call; the line reports the median and
+interquartile range per batch over all rounds.  A crop cache that the
+dataset refuses (missing, stale, unreadable or built for a narrower
+augmentation range) raises, where the JAX tool timed disk reads under the
+name "cache".
 
     INBED_DATA_ROOT=... INBED_NPZ_PATH=... python -m inbed_pose_estimation_tpu_torch.tools.loader_bench
         [--dataset slp-4mod-train] [--batch_size 32] [--batches 6] [--rounds 5] [--crop_cache DIR]
@@ -74,6 +79,10 @@ def main(argv=None) -> dict:
         specs += [("cache", args.crop_cache, False), ("cache+fast", args.crop_cache, True)]
     datasets = {name: build_dataset(args.dataset, args.img_res, cache, fast, args.noise_factor, args.rot_factor,
                                     args.scale_factor) for name, cache, fast in specs}
+    for name, cache, _ in specs:
+        if cache is not None and datasets[name]._cache is None:
+            raise ValueError(f"loader_bench: configuration '{name}': the crop cache in {cache} was refused for "
+                             f"{args.dataset} (see the line above); it would time disk reads")
     n = len(datasets["disk"])
     rng = np.random.default_rng(0)
 
@@ -82,11 +91,12 @@ def main(argv=None) -> dict:
     for ds in datasets.values():
         time_config(ds, [warm], seed=999)
 
-    results = {name: [] for name in datasets}
+    names = list(datasets)
+    results = {name: [] for name in names}
     for r in range(args.rounds):
         batches = [rng.integers(0, n, size=args.batch_size) for _ in range(args.batches)]
-        for name, ds in datasets.items():  # interleaved within each round
-            results[name] += time_config(ds, batches, seed=1000 + r)
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            results[name] += time_config(datasets[name], batches, seed=1000 + r)
 
     out = {}
     for name, ts in results.items():

@@ -8,7 +8,10 @@ its output keys.  The FLOPs are the JAX tool's closed form
 beside it (`gflops_counted`).  The time is CUDA events around `--iters`
 calls after a warm-up (the host clock on the CPU).  MFU is the achieved
 FLOP/s over the card's dense peak for the compute dtype, from
-`PEAK_FLOPS`; it is null on the CPU and on a card the table does not
+`PEAK_FLOPS`: `mfu` from the closed form, as the JAX tool reports it
+(whose 4.1 GFLOP an image is ResNet-50's count of multiply-adds, so it
+understates), and `mfu_counted` from `gflops_counted`, two FLOPs a
+multiply-add.  Both are null on the CPU and on a card the table does not
 name.  `--trace_dir` writes a torch.profiler trace of 3 inference calls.
 
     python -m inbed_pose_estimation_tpu_torch.tools.profile_mfu [--train] [--batches 32,64,128,256]
@@ -72,11 +75,11 @@ def _timer(torch, dev):
 
 def _row(what, batch, res, ms, flops, counted, dev, dtype, torch) -> dict:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    peak = peak_flops(name, dtype) if dev.type == "cuda" else None
+    peak = peak_flops(name, dtype)
     return {"what": what, "batch": batch, "res": res, "step_ms": ms, "images_per_sec": batch * 1e3 / ms,
             "gflops_per_step": flops / 1e9, "flops_source": "analytic", "gflops_counted": counted / 1e9,
             "achieved_tflops": flops / ms / 1e9, "mfu": None if peak is None else flops / (ms / 1e3) / peak,
-            "device": name}
+            "mfu_counted": None if peak is None else counted / (ms / 1e3) / peak, "device": name}
 
 
 def profile_inference(batch: int, res: int = 224, num_cas: int = 2, iters: int = 20, device: str = "cuda") -> dict:

@@ -10,7 +10,9 @@ fusion families the same way the JAX package's checkpoint converter does,
 with one exception: a multi-trunk model's `feat_extraction_<mod>` trunk is
 flax's `trunk<i>` with i the position of <mod> in the model's feed order
 (the converter's fixed table rgb/ir/depth/pm -> trunk0..3 misplaces the two
-trunks of ir_depth_featatt_cashmrV2).  It raises on any name or leaf left
+trunks of ir_depth_featatt_cashmrV2).  A `SelfAttention` module on its own
+maps as the cross attention does: `{query,key,value}_conv` -> flax's
+`query` / `key` / `value`, and `gamma`.  It raises on any name or leaf left
 unmapped.  `jax_state_entries` gives the same mapped arrays for
 a tolerant load, leaving out what the variables lack.
 
@@ -67,6 +69,14 @@ def _layer(path: Tuple[str, ...], leaf: str, is_conv: bool):
 
 def _conv_leaf(leaf: str) -> str:
     return "kernel" if leaf == "weight" else "bias"
+
+
+def _attention(base: Tuple[str, ...], parts) -> Tuple[Tuple[str, ...], str, str]:
+    """An attention module's `gamma` or `<query|key|value>_conv.<leaf>` under
+    the flax module `base` (whose convs are `query` / `key` / `value`)."""
+    if parts[0] == "gamma":
+        return base, "gamma", "params"
+    return base + (parts[0][:-len("_conv")],), _conv_leaf(parts[1]), "params"
 
 
 def _res_block(base: Tuple[str, ...], parts) -> Tuple[Tuple[str, ...], str, str]:
@@ -151,9 +161,9 @@ def flax_path(key: str, trunks: Sequence[str] = (), bodies_at_rest: bool = False
             return None
         return (f"trunk{list(trunks).index(m.group(1))}",) + mapped[0][1:], mapped[1], mapped[2]
     if parts[0] == "cross_att":
-        if leaf == "gamma":
-            return ("cross_att",), "gamma", "params"
-        return ("cross_att", parts[1][:-len("_conv")]), _conv_leaf(leaf), "params"
+        return _attention(("cross_att",), parts[1:])
+    if parts[0] in ("gamma", "query_conv", "key_conv", "value_conv"):  # a SelfAttention at the root
+        return _attention((), parts)
     if parts[0] == "dec1" or re.match(r"dec(IR|Depth|PM)[23]$", parts[0]):
         return _fusion_decoder(parts)
 

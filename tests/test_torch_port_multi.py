@@ -3,7 +3,8 @@ featatt_cashmr, ir_depth_featatt_cashmrV2) against the JAX package on the
 CPU, RES 64, batch 2, seeded flax variables of the JAX model's tree
 (BatchNorm moved off its init values, cross-attention gains non-zero) loaded
 through
-`load_jax_variables`: CrossAttention, MultiTrunkCore, `make_inference_fn`
+`load_jax_variables`: CrossAttention, SelfAttention (no model uses it),
+MultiTrunkCore, `make_inference_fn`
 with both recovered slots fed back, the weight maps with the 2-trunk order,
 and the port's train step (fast, without JAX; slow, against JAX's)."""
 
@@ -20,9 +21,10 @@ from torch import nn
 from inbed_pose_estimation_tpu.evaluation.pipeline import make_inference_fn as j_make_inference_fn
 from inbed_pose_estimation_tpu.models import build_model as j_build_model
 from inbed_pose_estimation_tpu.models.attention import CrossAttention as JCrossAttention
+from inbed_pose_estimation_tpu.models.attention import SelfAttention as JSelfAttention
 from inbed_pose_estimation_tpu.smpl import synthetic_smpl_model as j_synthetic
 from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn
-from inbed_pose_estimation_tpu_torch.models import CrossAttention, build_model
+from inbed_pose_estimation_tpu_torch.models import CrossAttention, SelfAttention, build_model
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
 from inbed_pose_estimation_tpu_torch.weights import flax_path, load_jax_variables
 from tests.test_torch_port_models import _perturb_bn
@@ -137,6 +139,30 @@ def test_cross_attention_matches_jax():
     np.testing.assert_allclose(np.transpose(got.numpy(), (0, 2, 3, 1)), want, rtol=1e-5, atol=1e-5)
     # Every map mixes in: the output is far from the identity it is at gamma = 0.
     assert np.abs(want - np.concatenate([np.transpose(f, (0, 2, 3, 1)) for f in feats], -1)).max() > 0.1
+
+
+def test_self_attention_matches_jax():
+    """B=2, C=16, 4x4, float32, the flax variables through the weight map
+    and gamma 0.5 on both sides, so that the attention term counts: within
+    atol 1e-5 (and rtol 1e-5) of the JAX module."""
+    x = np.random.default_rng(5).normal(0, 1, (2, 16, 4, 4)).astype(np.float32)
+    jatt = JSelfAttention()
+    variables = jax.tree_util.tree_map(np.asarray, jatt.init(jax.random.PRNGKey(2), nhwc(x)))
+    variables["params"]["gamma"] = np.array([0.5], np.float32)
+    att = load_jax_variables(SelfAttention(16), variables)
+    assert att.gamma.item() == 0.5
+    want = np.asarray(jatt.apply(variables, nhwc(x)))
+    with torch.no_grad():
+        got = att(torch.from_numpy(x))
+    assert got.shape == x.shape
+    np.testing.assert_allclose(np.transpose(got.numpy(), (0, 2, 3, 1)), want, rtol=1e-5, atol=1e-5)
+    assert np.abs(want - np.transpose(x, (0, 2, 3, 1))).max() > 0.1  # far from the identity
+
+
+def test_self_attention_is_the_identity_at_init():
+    att = SelfAttention(8)
+    x = torch.randn(B, 8, 7, 7)
+    assert torch.equal(att(x), x)
 
 
 def test_cross_attention_is_the_identity_at_init():

@@ -37,6 +37,9 @@ from inbed_pose_estimation_tpu_torch.train import (
 from inbed_pose_estimation_tpu_torch.weights import flax_path, load_jax_adam_state, load_jax_variables
 
 RES, B, MODEL = 64, 4, "hmr"
+# The Trainer against JAX's, the fits store after steps 1 and 2
+# (test_trainer_matches_jax_trainer's docstring).
+FITS_ATOL = (1e-4, 3e-2)
 
 
 @pytest.fixture(scope="module")
@@ -514,10 +517,13 @@ def test_from_json_merges_every_option_but_the_name(tmp_path):
 
 
 @pytest.mark.slow
-def test_trainer_matches_jax_trainer(tree, tmp_path, capsys):
+@pytest.mark.parametrize("smplify", [False, True], ids=["no_smplify", "smplify"])
+def test_trainer_matches_jax_trainer(tree, tmp_path, capsys, smplify):
     """The port's Trainer against the JAX package's over 2 steps (one epoch
     of the 8 samples): the same JAX init through --pretrained_checkpoint,
-    dropout off, augmentation off, the uint8 feed, SMPLify off.
+    dropout off, augmentation off, the uint8 feed, SMPLify off or on (2
+    Adam steps a stage), each side logging to its own directory, whose
+    fits store the other does not read.
 
     Step 1: the loss and its parts within 1e-4, and the weights after it.
     Adam's first step moves each weight by lr times the sign of its
@@ -529,7 +535,16 @@ def test_trainer_matches_jax_trainer(tree, tmp_path, capsys):
     26,156; so at most 1% may part.  Step 2 starts from weights that differ
     there: its loss and parts within 2e-2 (readings up to 7.8e-3, on
     loss_keypoints; a wrong batch moves them by 10-30%), and no weight more
-    than 2 lr a step from JAX's.  Slow: the JAX side compiles its step."""
+    than 2 lr a step from JAX's.  The fits store: with SMPLify, 3 rows
+    after step 1 and 7 after step 2 on both sides, step 1's within 1e-4
+    (reading 1.43e-5, SMPLify's 2 iterations from the same prediction, the
+    slow SMPLify train-step test's limit without the feedback), step 2's
+    within 3e-2 (reading 9.62e-3: it fits from weights that already part
+    by 2 lr, as the losses do); without SMPLify it does not move.  The loss
+    and its parts hold the same limits either way (the regression losses
+    on the fits count from step 2 on).  Each step's SMPLify update moves
+    the store by 0.137 and 0.344, more than 3x each limit.  Slow: the JAX
+    side compiles its step."""
     import functools
 
     import inbed_pose_estimation_tpu.models.hmr as jhmr
@@ -547,7 +562,8 @@ def test_trainer_matches_jax_trainer(tree, tmp_path, capsys):
         return {jax.tree_util.keystr(p): np.asarray(v) for p, v in jax.tree_util.tree_flatten_with_path(tree_)[0]}
 
     split = "slp-4mod-train"
-    jparams = []
+    extra = ["--run_smplify", "--num_smplify_iters", "2"] if smplify else []
+    jparams, jfits = [], []
     mp = pytest.MonkeyPatch()
     try:
         mp.setitem(j_config.DATASET_FOLDERS, split, config.dataset_folder(split))
@@ -557,7 +573,7 @@ def test_trainer_matches_jax_trainer(tree, tmp_path, capsys):
         variables = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0),
                                                                             jnp.zeros((1, RES, RES, 3))))
         init = j_save_checkpoint(str(tmp_path / "init"), variables, epoch=0, batch_idx=0)
-        common = _args(tmp_path, "--pretrained_checkpoint", init)[:-2]  # the JAX parser has no --device
+        common = _args(tmp_path / "jax", "--pretrained_checkpoint", init, *extra)[:-2]  # the JAX parser has no --device
         jopts = j_parse_args(common[:1] + ["jax"] + common[2:])
         jtrainer = JTrainer(jopts, jmodel, jspec, j_synthetic(0), j_prior(),
                             JBaseDataset(jopts, split, is_train=True, use_augmentation=False))
@@ -566,6 +582,7 @@ def test_trainer_matches_jax_trainer(tree, tmp_path, capsys):
         def jax_step(state, batch):  # the weights after each step, before the next donates them
             state, metrics = jstep(state, batch)
             jparams.append(flat(jax.device_get(state.params)))
+            jfits.append(np.asarray(jax.device_get(state.fits)))
             return state, metrics
 
         jtrainer.train_step = jax_step
@@ -576,17 +593,19 @@ def test_trainer_matches_jax_trainer(tree, tmp_path, capsys):
     jmetrics = [{k: float(v) for k, v in (kv.split("=") for kv in line.split())} for line in lines]
     assert len(jmetrics) == len(jparams) == jtrainer.step_count == 2
 
-    options = parse_args(common + ["--device", "cpu"])
+    options = parse_args(_args(tmp_path / "port", "--pretrained_checkpoint", init, *extra))
     torch.manual_seed(1)  # not the JAX init: --pretrained_checkpoint must replace it
     model, spec = build_model(MODEL, device="cpu", dropout_rate=0.0)
     trainer = Trainer(options, model, spec, synthetic_smpl_model(0, device="cpu"), synthetic_gmm_prior(device="cpu"),
                       BaseDataset(options, split, is_train=True, use_augmentation=False), device="cpu")
-    params = []
+    params, fits = [], []
+    fits0 = trainer.state.fits.clone().numpy()
     step = trainer.train_step
 
     def port_step(state, batch):
         state, metrics = step(state, batch)
         params.append(flat(convert_torch_state_dict({k: v.clone() for k, v in model.state_dict().items()})["params"]))
+        fits.append(state.fits.clone().numpy())
         return state, metrics
 
     trainer.train_step = port_step
@@ -609,3 +628,14 @@ def test_trainer_matches_jax_trainer(tree, tmp_path, capsys):
         assert metrics[1][k] == pytest.approx(want, rel=2e-2, abs=1e-4), k
     for k, want in jparams[1].items():
         assert np.abs(params[1][k] - want).max() <= 4 * lr + 1e-6, k
+    # The fits store after each step: the same rows changed on both sides
+    # (none without SMPLify), the values within FITS_ATOL of JAX's, and each
+    # step's SMPLify update more than 3x that limit.
+    for i, atol in enumerate(FITS_ATOL):
+        changed = (jfits[i] != fits0).any(axis=1)
+        assert np.array_equal((fits[i] != fits0).any(axis=1), changed), i
+        assert changed.sum() == (0 if not smplify else (3, 7)[i]), (i, changed.sum())
+        np.testing.assert_allclose(fits[i], jfits[i], atol=atol, rtol=0)
+        if smplify:  # readings 0.137 and 0.344
+            before = fits0 if i == 0 else jfits[0]
+            assert np.abs(jfits[i] - before).max() > 3 * atol, i
