@@ -39,6 +39,7 @@ from ..parallel import mesh
 from ..render.part_renderer import PartRenderer
 from ..render.renderer import Renderer
 from ..smpl.model import SMPLModel, smpl_forward
+from ..utils.profiling import StepTimer
 from .pipeline import eval_metrics, load_j_regressor_h36m, make_inference_fn, regress_j17
 
 
@@ -240,12 +241,13 @@ def run_evaluation(
     "timing" holds the host clock's view of the run: images, batches,
     seconds, images_per_s, loader_wait_s (blocked on the next batch) and
     mask_s (the mask branch: its read-back, the host uncrop and scores)
-    and dump_s (the image dumps).  With `result_file`, writes
-    <result_file>/smpl_fits/<split>_fits.npz (pose [N, 72] axis-angle,
-    rotmat, betas, camera, pred_joints) and the image dumps of
-    `_save_artifacts` under <result_file>/<split>/; the raw frames of
-    `device_preprocess` have no host image to draw on, so that mode writes
-    the npz only and says so once.
+    and dump_s (the image dumps), the phases `data`, `mask` and `dump` of
+    a `StepTimer("eval")`, so also `eval.*` spans in a profiler's trace.
+    With `result_file`, writes <result_file>/smpl_fits/<split>_fits.npz
+    (pose [N, 72] axis-angle, rotmat, betas, camera, pred_joints) and the
+    image dumps of `_save_artifacts` under <result_file>/<split>/; the raw
+    frames of `device_preprocess` have no host image to draw on, so that
+    mode writes the npz only and says so once.
 
     Data parallel: `batch_size` is the global batch, which the world size
     must divide.  Each rank loads and infers its rows of each batch, the
@@ -340,13 +342,12 @@ def run_evaluation(
     def to_dev(x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype).to(dev)
 
-    loader_wait = mask_s = dump_s = 0.0
+    timer = StepTimer("eval")
     warned_raw = False
     batches = iter(loader)
     while True:
-        t0 = time.perf_counter()
-        got = next(batches, None)
-        loader_wait += time.perf_counter() - t0
+        with timer.phase("data"):
+            got = next(batches, None)
         if got is None:
             break
         step, batch = got
@@ -383,30 +384,28 @@ def run_evaluation(
             pending.append((lo, hi, bs, metrics["mpjpe"], metrics["pa_mpjpe"], pv_dev, valid))
 
         if part_renderer is not None:
-            t0 = time.perf_counter()
-            masks_dev, parts_dev = part_renderer(preds["vertices"], preds["cam"])
-            if eval_masks:
-                _accumulate(mask_totals, mask_confusion(masks_dev.cpu().numpy(), batch, bs))
-            if eval_parts:
-                _accumulate(parts_totals, _parts_confusion(parts_dev.cpu().numpy(), batch, bs))
-            mask_s += time.perf_counter() - t0
+            with timer.phase("mask"):
+                masks_dev, parts_dev = part_renderer(preds["vertices"], preds["cam"])
+                if eval_masks:
+                    _accumulate(mask_totals, mask_confusion(masks_dev.cpu().numpy(), batch, bs))
+                if eval_parts:
+                    _accumulate(parts_totals, _parts_confusion(parts_dev.cpu().numpy(), batch, bs))
 
         if save_results:
             smpl_pose[lo:hi] = preds["rotmat"][:bs].cpu().numpy()
             smpl_betas[lo:hi] = preds["betas"][:bs].cpu().numpy()
             smpl_camera[lo:hi] = preds["cam"][:bs].cpu().numpy()
             pred_joints_out[lo:hi] = preds["keypoints_3d_17"][:bs].cpu().numpy()
-            t0 = time.perf_counter()
-            if "img" in batch:
-                # The batch's first 8 samples, each drawn by the rank that holds it.
-                _save_artifacts(result_file, dataset_name, lo, batch, preds, smpl_model, img_res,
-                                pred_masks=masks_dev if part_renderer is not None else None,
-                                count=min(bs, max(0, _DUMPS_PER_BATCH - rank * local_bs)))
-            elif not warned_raw:
-                print("artifact dumps unavailable under --device_preprocess "
-                      "(normalized images never materialize on the host)")
-                warned_raw = True
-            dump_s += time.perf_counter() - t0
+            with timer.phase("dump"):
+                if "img" in batch:
+                    # The batch's first 8 samples, each drawn by the rank that holds it.
+                    _save_artifacts(result_file, dataset_name, lo, batch, preds, smpl_model, img_res,
+                                    pred_masks=masks_dev if part_renderer is not None else None,
+                                    count=min(bs, max(0, _DUMPS_PER_BATCH - rank * local_bs)))
+                elif not warned_raw:
+                    print("artifact dumps unavailable under --device_preprocess "
+                          "(normalized images never materialize on the host)")
+                    warned_raw = True
 
         if log_freq and step % log_freq == log_freq - 1 and eval_pose and world == 1:
             drain()
@@ -469,5 +468,6 @@ def run_evaluation(
     mesh.barrier()  # log.txt and the npz are written before any rank returns
     seconds = time.perf_counter() - t_start
     results["timing"] = {"images": n, "batches": len(loader), "seconds": seconds, "images_per_s": n / seconds,
-                         "loader_wait_s": loader_wait, "mask_s": mask_s, "dump_s": dump_s}
+                         "loader_wait_s": timer.totals["data"], "mask_s": timer.totals["mask"],
+                         "dump_s": timer.totals["dump"]}
     return results

@@ -16,6 +16,7 @@ from ..models import cascade_apply
 from ..models.hmr import HMROutput
 from ..ops.mask_raster import splat_points_to_mask
 from ..smpl.model import SMPLModel, lbs, smpl_forward
+from ..utils.profiling import span
 
 
 def load_j_regressor_h36m(path: Optional[str] = None, num_vertices: int = constants.NUM_VERTICES) -> np.ndarray:
@@ -89,8 +90,9 @@ def make_forward_fn(model, spec, num_cas_iters: int = 2, final_recon: bool = Tru
 
 def regress_j17(j_regressor, verts):
     """Pelvis-centred 17 H36M joints [B, 17, 3] from vertices [B, V, 3]."""
-    k3d = torch.einsum("jv,bvc->bjc", j_regressor, verts)
-    return k3d[:, constants.H36M_TO_J17] - k3d[:, 0:1]
+    with span("eval.j17"):
+        k3d = torch.einsum("jv,bvc->bjc", j_regressor, verts)
+        return k3d[:, constants.H36M_TO_J17] - k3d[:, 0:1]
 
 
 def make_inference_fn(
@@ -109,7 +111,8 @@ def make_inference_fn(
     moved there on each call.  Outputs:
     rotmat, betas, cam, vertices [B, V, 3], recon, and keypoints_3d_17 when
     a J-regressor is given.  Puts the model in eval mode and runs without
-    autograd.
+    autograd.  Each call is an `eval.call` span, with the copies under
+    `eval.h2d` and the model's own spans beneath it.
     """
     dev = resolve_device(device)
     model.to(dev).eval()
@@ -119,13 +122,16 @@ def make_inference_fn(
 
     @torch.no_grad()
     def infer(inputs) -> dict:
-        inputs = tuple(torch.as_tensor(x, dtype=torch.float32, device=dev) for x in inputs)
-        out = forward(inputs)
-        verts, _ = lbs(smpl_model, out.betas, out.rotmat)
-        result = {"rotmat": out.rotmat, "betas": out.betas, "cam": out.cam, "vertices": verts, "recon": out.recon}
-        if jreg is not None:
-            result["keypoints_3d_17"] = regress_j17(jreg, verts)
-        return result
+        with span("eval.call"):
+            with span("eval.h2d"):
+                inputs = tuple(torch.as_tensor(x, dtype=torch.float32, device=dev) for x in inputs)
+            out = forward(inputs)
+            verts, _ = lbs(smpl_model, out.betas, out.rotmat)
+            result = {"rotmat": out.rotmat, "betas": out.betas, "cam": out.cam, "vertices": verts,
+                      "recon": out.recon}
+            if jreg is not None:
+                result["keypoints_3d_17"] = regress_j17(jreg, verts)
+            return result
 
     return infer
 

@@ -18,6 +18,7 @@ import torch
 from ..device import constant
 from ..ops.skinning import skinning
 from ..smpl.model import SMPLModel, smpl_forward
+from ..utils.profiling import span
 from .losses import IGN_JOINTS_IND, body_fitting_loss, camera_fitting_loss
 from .prior import GMMPrior
 
@@ -73,37 +74,38 @@ def make_smplify(smpl_model: SMPLModel, pose_prior: GMMPrior, step_size: float =
     """
 
     def smplify(init_pose, init_betas, init_cam_t, camera_center, keypoints_2d) -> SMPLifyResult:
-        init_pose, init_betas, init_cam_t, camera_center, keypoints_2d = (
-            t.detach() for t in (init_pose, init_betas, init_cam_t, camera_center, keypoints_2d))
-        joints_2d = keypoints_2d[:, :, :2]
-        joints_conf = keypoints_2d[:, :, 2]
-        body_pose0, global_orient0 = init_pose[:, 3:], init_pose[:, :3]
+        with span("fitting.smplify"):
+            init_pose, init_betas, init_cam_t, camera_center, keypoints_2d = (
+                t.detach() for t in (init_pose, init_betas, init_cam_t, camera_center, keypoints_2d))
+            joints_2d = keypoints_2d[:, :, :2]
+            joints_conf = keypoints_2d[:, :, 2]
+            body_pose0, global_orient0 = init_pose[:, 3:], init_pose[:, :3]
 
-        def stage1_loss(global_orient, camera_t):
-            pose = torch.cat([global_orient, body_pose0], dim=1)
-            out = smpl_forward(smpl_model, init_betas, pose_aa=pose, skin=skin)
-            return camera_fitting_loss(out.joints, camera_t, init_cam_t, camera_center, joints_2d, joints_conf,
-                                       focal_length=focal_length)
+            def stage1_loss(global_orient, camera_t):
+                pose = torch.cat([global_orient, body_pose0], dim=1)
+                out = smpl_forward(smpl_model, init_betas, pose_aa=pose, skin=skin)
+                return camera_fitting_loss(out.joints, camera_t, init_cam_t, camera_center, joints_2d, joints_conf,
+                                           focal_length=focal_length)
 
-        global_orient, camera_t = adam(stage1_loss, [global_orient0, init_cam_t], step_size, num_iters)
+            global_orient, camera_t = adam(stage1_loss, [global_orient0, init_cam_t], step_size, num_iters)
 
-        conf2 = _zero_ignored(joints_conf)
+            conf2 = _zero_ignored(joints_conf)
 
-        def stage2_loss(body_pose, betas, orient):
-            out = smpl_forward(smpl_model, betas, pose_aa=torch.cat([orient, body_pose], dim=1), skin=skin)
-            return body_fitting_loss(body_pose, betas, out.joints, camera_t, camera_center, joints_2d, conf2,
-                                     pose_prior, focal_length=focal_length)
+            def stage2_loss(body_pose, betas, orient):
+                out = smpl_forward(smpl_model, betas, pose_aa=torch.cat([orient, body_pose], dim=1), skin=skin)
+                return body_fitting_loss(body_pose, betas, out.joints, camera_t, camera_center, joints_2d, conf2,
+                                         pose_prior, focal_length=focal_length)
 
-        body_pose, betas, global_orient = adam(stage2_loss, [body_pose0, init_betas, global_orient], step_size,
-                                               num_iters)
+            body_pose, betas, global_orient = adam(stage2_loss, [body_pose0, init_betas, global_orient], step_size,
+                                                   num_iters)
 
-        with torch.no_grad():
-            pose = torch.cat([global_orient, body_pose], dim=1)
-            out = smpl_forward(smpl_model, betas, pose_aa=pose, skin=skin)
-            reproj = body_fitting_loss(body_pose, betas, out.joints, camera_t, camera_center, joints_2d, conf2,
-                                       pose_prior, focal_length=focal_length, output="reprojection")
-        return SMPLifyResult(vertices=out.vertices, joints=out.joints, pose=pose, betas=betas,
-                             camera_translation=camera_t, reprojection_loss=reproj)
+            with torch.no_grad():
+                pose = torch.cat([global_orient, body_pose], dim=1)
+                out = smpl_forward(smpl_model, betas, pose_aa=pose, skin=skin)
+                reproj = body_fitting_loss(body_pose, betas, out.joints, camera_t, camera_center, joints_2d, conf2,
+                                           pose_prior, focal_length=focal_length, output="reprojection")
+            return SMPLifyResult(vertices=out.vertices, joints=out.joints, pose=pose, betas=betas,
+                                 camera_translation=camera_t, reprojection_loss=reproj)
 
     return smplify
 

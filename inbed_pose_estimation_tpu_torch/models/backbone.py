@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import mesh
+from ..utils.profiling import span
 from .layers import Conv2d, collective, recomputing
 
 
@@ -147,13 +148,14 @@ class ResNet50Trunk(nn.Module):
         self.layer4 = _stage(1024, 512, 3, 2)
 
     def pyramid(self, x):
-        x0 = self.conv1(x)
-        h = F.max_pool2d(F.relu(self.bn1(x0)), 3, stride=2, padding=1)
-        x1 = self.layer1(h)
-        x2 = self.layer2(x1)
-        x3 = self.layer3(x2)
-        x4 = self.layer4(x3)
-        return x0, x1, x2, x3, x4
+        with span("hmr.trunk"):
+            x0 = self.conv1(x)
+            h = F.max_pool2d(F.relu(self.bn1(x0)), 3, stride=2, padding=1)
+            x1 = self.layer1(h)
+            x2 = self.layer2(x1)
+            x3 = self.layer3(x2)
+            x4 = self.layer4(x3)
+            return x0, x1, x2, x3, x4
 
     def forward(self, x):
         return self.pyramid(x)

@@ -42,6 +42,7 @@ from torch import nn
 
 from ..ops.mask_raster import render_body_mask
 from ..smpl.model import SMPLModel, lbs
+from ..utils.profiling import span
 from .decoder import ResBlock
 from .hmr import HMRCore, HMROutput
 from .layers import Conv2d
@@ -103,12 +104,13 @@ class TwoStageFusion(nn.Module):
             verts, _ = lbs(smpl_model, out1.betas.detach(), out1.rotmat.detach())
             mask = render_body_mask(verts, out1.cam.detach(), img_res=H).clamp(0.0, 1.0)
 
-        feat_up = self.dec1(x4)
-        recovered = {}
-        for head, slot in self.slot_of.items():
-            name = HEAD_NAME[head]
-            h = getattr(self, f"dec{name}2")(inputs[slot] * mask)
-            recovered[head] = getattr(self, f"dec{name}3")(torch.cat([feat_up, h, x0], dim=1))
+        with span("fusion.recover"):
+            feat_up = self.dec1(x4)
+            recovered = {}
+            for head, slot in self.slot_of.items():
+                name = HEAD_NAME[head]
+                h = getattr(self, f"dec{name}2")(inputs[slot] * mask)
+                recovered[head] = getattr(self, f"dec{name}3")(torch.cat([feat_up, h, x0], dim=1))
 
         head_of_slot = {s: h for h, s in self.slot_of.items()}
         stage2_in = [recovered[head_of_slot[i]] if i in head_of_slot else x for i, x in enumerate(inputs)]

@@ -30,6 +30,7 @@ from .attention import CrossAttention
 from .backbone import ResNet50Trunk
 from .decoder import Reconstruct
 from .heads import add_ief_layers, ief_regress
+from ..utils.profiling import span
 from .layers import checkpoint
 
 # Batch key of a modality -> its name in the reference's parameter names.
@@ -59,7 +60,8 @@ def _decode(module: nn.Module, pyramid) -> dict:
     recon = {}
     for head in module.recon_heads:
         dec = getattr(module, f"Reconstruct_{head}")
-        recon[head] = checkpoint(dec, *pyramid) if module.remat_decoder else dec(*pyramid)
+        with span("hmr.decoder"):
+            recon[head] = checkpoint(dec, *pyramid) if module.remat_decoder else dec(*pyramid)
     return recon
 
 
@@ -67,19 +69,20 @@ def _regress(module: nn.Module, x4, recon, generator, init=None, pyramid=None) -
     """Pool x4, run `module`'s IEF from `init` (pose6d, betas, cam) or from
     its mean parameters (in the compute dtype, as JAX casts them), and wrap
     the result, cast to the parameters' type."""
-    batch = x4.shape[0]
-    if init is None:
-        init = (module.init_pose.expand(batch, -1), module.init_shape.expand(batch, -1),
-                module.init_cam.expand(batch, -1))
-        if module.compute_dtype is not None:
-            init = tuple(t.to(module.compute_dtype) for t in init)
-    xf = x4.mean(dim=(2, 3))  # global average pool == AvgPool2d(7) on 7x7 maps
-    pose6d, betas, cam = ief_regress(module, xf, *init, module.n_iter, module.dropout_rate, generator)
-    out_dtype = module.init_pose.dtype
-    pose6d, betas, cam = pose6d.to(out_dtype), betas.to(out_dtype), cam.to(out_dtype)
-    recon = {k: v.to(out_dtype) for k, v in recon.items()}
-    rotmat = rot6d_to_rotmat(pose6d).reshape(batch, 24, 3, 3)
-    return HMROutput(rotmat=rotmat, betas=betas, cam=cam, pose6d=pose6d, recon=recon, pyramid=pyramid)
+    with span("hmr.ief"):
+        batch = x4.shape[0]
+        if init is None:
+            init = (module.init_pose.expand(batch, -1), module.init_shape.expand(batch, -1),
+                    module.init_cam.expand(batch, -1))
+            if module.compute_dtype is not None:
+                init = tuple(t.to(module.compute_dtype) for t in init)
+        xf = x4.mean(dim=(2, 3))  # global average pool == AvgPool2d(7) on 7x7 maps
+        pose6d, betas, cam = ief_regress(module, xf, *init, module.n_iter, module.dropout_rate, generator)
+        out_dtype = module.init_pose.dtype
+        pose6d, betas, cam = pose6d.to(out_dtype), betas.to(out_dtype), cam.to(out_dtype)
+        recon = {k: v.to(out_dtype) for k, v in recon.items()}
+        rotmat = rot6d_to_rotmat(pose6d).reshape(batch, 24, 3, 3)
+        return HMROutput(rotmat=rotmat, betas=betas, cam=cam, pose6d=pose6d, recon=recon, pyramid=pyramid)
 
 
 class HMRCore(ResNet50Trunk):

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..constants import FOCAL_LENGTH, IMG_RES
 from ..geometry import perspective_projection, weak_perspective_to_cam_t
+from ..utils.profiling import span
 
 # Coordinates are clamped to this magnitude before the int cast: far outside
 # any canvas (so still dropped), and inside int32's range.
@@ -62,13 +63,14 @@ def render_body_mask(vertices: torch.Tensor, pred_camera: torch.Tensor, img_res:
     align_corners=False)` computes (it clamps the source coordinate to the
     edge), so that call is used; the tests hold it against JAX.
     """
-    B = vertices.shape[0]
-    cam_t = weak_perspective_to_cam_t(pred_camera, focal_length, img_res)
-    eye = torch.eye(3, dtype=vertices.dtype, device=vertices.device).expand(B, 3, 3)
-    uv = perspective_projection(vertices, eye, cam_t, focal_length, torch.zeros_like(cam_t[:, :2]))
-    uv = (uv + 0.5 * img_res) / mask_scale
-    res = img_res // mask_scale
-    mask = splat_points_to_mask(uv, res, res, dilation=5)
-    if upsample and mask_scale != 1:
-        mask = F.interpolate(mask, size=(img_res, img_res), mode="bilinear", align_corners=False)
-    return mask
+    with span("ops.body_mask"):
+        B = vertices.shape[0]
+        cam_t = weak_perspective_to_cam_t(pred_camera, focal_length, img_res)
+        eye = torch.eye(3, dtype=vertices.dtype, device=vertices.device).expand(B, 3, 3)
+        uv = perspective_projection(vertices, eye, cam_t, focal_length, torch.zeros_like(cam_t[:, :2]))
+        uv = (uv + 0.5 * img_res) / mask_scale
+        res = img_res // mask_scale
+        mask = splat_points_to_mask(uv, res, res, dilation=5)
+        if upsample and mask_scale != 1:
+            mask = F.interpolate(mask, size=(img_res, img_res), mode="bilinear", align_corners=False)
+        return mask

@@ -18,6 +18,7 @@ from torch import nn
 from ..device import constant
 from ..geometry import batch_rodrigues
 from ..ops.skinning import skinning
+from ..utils.profiling import span
 
 # The 21 face/hand/foot "vertex joints" (rows 24..44 of the extended joint
 # set), standard SMPL vertex ids in smplx's VERTEX_IDS order.
@@ -90,24 +91,25 @@ def lbs(model: SMPLModel, betas, rot_mats, skin=skinning):
     `skin` is the skinning function; the default launches the CUDA kernel
     for tensors on the card.  Returns (vertices [B, V, 3], joints24 [B, 24, 3]).
     """
-    B = betas.shape[0]
-    V = model.v_template.shape[0]
+    with span("smpl.lbs"):
+        B = betas.shape[0]
+        V = model.v_template.shape[0]
 
-    v_shaped = model.v_template[None] + torch.einsum("vck,bk->bvc", model.shapedirs, betas)
-    J = torch.einsum("jv,bvc->bjc", model.J_regressor, v_shaped)
+        v_shaped = model.v_template[None] + torch.einsum("vck,bk->bvc", model.shapedirs, betas)
+        J = torch.einsum("jv,bvc->bjc", model.J_regressor, v_shaped)
 
-    ident = torch.eye(3, dtype=betas.dtype, device=betas.device)
-    pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1)
-    v_posed = v_shaped + (pose_feature @ model.posedirs).reshape(B, V, 3)
+        ident = torch.eye(3, dtype=betas.dtype, device=betas.device)
+        pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1)
+        v_posed = v_shaped + (pose_feature @ model.posedirs).reshape(B, V, 3)
 
-    world = _kinematic_chain(rot_mats, J, model)
-    joints24 = world[:, :, :3, 3]
-    # Remove the rest-pose joint locations: G_j <- G_j . [I | -J_j].
-    A_rot = world[:, :, :3, :3]
-    A_t = world[:, :, :3, 3] - torch.einsum("bjmn,bjn->bjm", A_rot, J)
+        world = _kinematic_chain(rot_mats, J, model)
+        joints24 = world[:, :, :3, 3]
+        # Remove the rest-pose joint locations: G_j <- G_j . [I | -J_j].
+        A_rot = world[:, :, :3, :3]
+        A_t = world[:, :, :3, 3] - torch.einsum("bjmn,bjn->bjm", A_rot, J)
 
-    verts = skin(v_posed, model.lbs_weights, A_rot, A_t)
-    return verts, joints24
+        verts = skin(v_posed, model.lbs_weights, A_rot, A_t)
+        return verts, joints24
 
 
 def smpl_forward(model: SMPLModel, betas, rot_mats=None, pose_aa=None, skin=skinning) -> SMPLOutput:

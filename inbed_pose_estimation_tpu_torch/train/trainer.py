@@ -75,7 +75,7 @@ from ..models.layers import checkpoint
 from ..ops.mask_raster import render_body_mask
 from ..parallel import mesh
 from ..smpl.model import SMPLModel, smpl_forward
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, span
 from . import losses as L
 from .checkpoint import latest_checkpoint, load_guide, load_pretrained, resume_train_state, save_checkpoint
 from .fits_dict import FitsStore, fits_get, fits_set
@@ -347,22 +347,29 @@ def make_train_step(model: nn.Module, spec, smpl_model: SMPLModel, prior: GMMPri
         return {k: v.to(dtype) if v.is_floating_point() else v for k, v in decoded.items()}
 
     def train_step(state: TrainState, batch):
-        model.train()
-        total, fits, metrics = loss_fn(state.fits, to_device(batch), state.generator)
-        params = trainable(model)
-        # Bodies-At-Rest's mode "1" detaches every output: no gradient at all.
-        grads = (torch.autograd.grad(total, params, allow_unused=True) if total.requires_grad
-                 else [None] * len(params))
-        # A parameter the loss does not reach gets a zero gradient, so that
-        # Adam still decays its moments, as optax does.
-        for p, g in zip(params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
-        mesh.sync_gradients(params)
-        state.optimizer.step()
-        if mesh.is_initialized():  # the global batch's values: the mean over the ranks
-            values = mesh.all_reduce_(torch.stack(list(metrics.values()))) / mesh.world_size()
-            metrics = dict(zip(metrics, values))
-        return dataclasses.replace(state, fits=fits, step=state.step + 1), metrics
+        with span("train.step"):
+            model.train()
+            with span("train.h2d"):
+                feed = to_device(batch)
+            with span("train.loss"):
+                total, fits, metrics = loss_fn(state.fits, feed, state.generator)
+            params = trainable(model)
+            # Bodies-At-Rest's mode "1" detaches every output: no gradient at all.
+            with span("train.backward"):
+                grads = (torch.autograd.grad(total, params, allow_unused=True) if total.requires_grad
+                         else [None] * len(params))
+            # A parameter the loss does not reach gets a zero gradient, so that
+            # Adam still decays its moments, as optax does.
+            for p, g in zip(params, grads):
+                p.grad = torch.zeros_like(p) if g is None else g
+            with span("train.allreduce"):
+                mesh.sync_gradients(params)
+            with span("train.optimizer"):
+                state.optimizer.step()
+            if mesh.is_initialized():  # the global batch's values: the mean over the ranks
+                values = mesh.all_reduce_(torch.stack(list(metrics.values()))) / mesh.world_size()
+                metrics = dict(zip(metrics, values))
+            return dataclasses.replace(state, fits=fits, step=state.step + 1), metrics
 
     return train_step
 
@@ -464,8 +471,9 @@ class Trainer:
         start = time.time()
         # Phases: "data" waits on the loader, "dispatch" is the step's host
         # time (eager: most of the step), "sync" waits on the device for the
-        # summary's metrics, the step's one read-back.
-        timer = StepTimer()
+        # summary's metrics, the step's one read-back.  Each is also a
+        # `train.<phase>` span.
+        timer = StepTimer("train")
         window_t0, window_steps = time.time(), 0
         for epoch in range(self.epoch0, opts.num_epochs):
             if self._mode1_step is not None:

@@ -320,7 +320,7 @@ def test_port_reads_jax_npz_with_optimizer(tmp_path):
 def test_step_timer_keeps_window_means():
     from inbed_pose_estimation_tpu_torch.utils.profiling import StepTimer
 
-    timer = StepTimer()
+    timer = StepTimer("train")
     for name in ("data", "data", "sync"):
         with timer.phase(name):
             pass
