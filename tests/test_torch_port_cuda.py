@@ -1,7 +1,7 @@
 """PyTorch port on the card: the CUDA skinning kernel against its plain
 version, SMPLify through it, the training step on the card against the
-CPU, the uint8 feed decoded on the card and K2-K5 on the card against the
-CPU.  Every test needs a CUDA device and skips without one (a CUDA
+CPU, the uint8 feed decoded on the card, K2-K5 on the card against the
+CPU, and the eval entry's pinned staging ring.  Every test needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode); run them on the card with
 `python -m pytest tests/test_torch_port_cuda.py -m cuda`."""
 
@@ -324,3 +324,110 @@ def test_uint8_feed_decodes_on_card_as_on_cpu(cuda, monkeypatch):
     for k in ("img", "ir_img", "depth_img", "pm_img", "depth_img_uncover"):
         assert seen[k] == (torch.uint8, "cuda"), (k, seen[k])
     assert seen["pixel_noise"] == (torch.float32, "cuda")
+
+
+EVAL_B, EVAL_RES = 32, 224
+
+
+def _eval_step(name, cuda):
+    """make_inference_fn over `name` with seeded weights and synthetic SMPL
+    at the eval CLI's settings (224², two cascade passes, the last
+    without its decoder)."""
+    from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn
+    from inbed_pose_estimation_tpu_torch.models import build_model
+
+    torch.manual_seed(0)
+    model, spec = build_model(name, device=cuda, img_res=EVAL_RES)
+    smpl = synthetic_smpl_model(0, device=cuda)
+    infer = make_inference_fn(model, spec, smpl, load_j_regressor_h36m(num_vertices=smpl.v_template.shape[0]),
+                              final_recon=False, device=cuda)
+    return infer, spec
+
+
+def _host_batch(spec, seed, B=EVAL_B):
+    """Float32 NCHW host tensors, pageable, one per modality."""
+    r = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(r.normal(0, 1, (B, 3 if m == "img" else 1, EVAL_RES, EVAL_RES)).astype(np.float32))
+                 for m in spec.modalities)
+
+
+def _passed(infer, batch, cuda):
+    """The answer of inputs already moved to the card with a blocking copy."""
+    return infer(tuple(x.to(cuda) for x in batch))
+
+
+def _assert_same(got, want):
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if isinstance(v, dict):
+            assert got[k].keys() == v.keys(), k
+            for kk, vv in v.items():
+                assert torch.equal(got[k][kk], vv), (k, kk)
+        else:
+            assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("name", ["cashmrV2", "ir_depth_pm_fusion"])
+def test_staged_eval_equals_pass_through(cuda, name):
+    """Host inputs staged through the pinned ring give the answers of the
+    same inputs moved first with a blocking `.to`, bit for bit."""
+    infer, spec = _eval_step(name, cuda)
+    batch = _host_batch(spec, 1)
+    staged = infer(batch)
+    passed = _passed(infer, batch, cuda)
+    torch.cuda.synchronize()
+    _assert_same(staged, passed)
+    assert infer.staging == {"staged": 1, "passed": 1, "remade": 0}
+
+
+def test_staged_eval_survives_overwritten_host_batches(cuda):
+    """The caller overwrites its host batch as soon as each call returns,
+    with later calls in flight behind it; every kept answer stays that of
+    its own batch once all calls have ended."""
+    infer, spec = _eval_step("cashmrV2", cuda)
+    batches = [_host_batch(spec, seed) for seed in range(2, 6)]
+    want = [_passed(infer, b, cuda) for b in batches]
+    torch.cuda.synchronize()
+    buf = tuple(x.clone() for x in batches[0])
+    kept = []
+    for b in batches:
+        for dst, src in zip(buf, b):
+            dst.copy_(src)
+        kept.append(infer(buf))
+        for dst in buf:
+            dst.fill_(float("nan"))
+    torch.cuda.synchronize()
+    for got, w in zip(kept, want):
+        _assert_same(got, w)
+    assert infer.staging["staged"] == len(batches)
+
+
+def test_staged_eval_remakes_the_ring_on_a_new_shape(cuda):
+    """Batches of 32, 7 and 32 frames (numpy, as the loader yields them):
+    each answer equals its pass-through answer, and the ring is re-made
+    twice."""
+    infer, spec = _eval_step("cashmrV2", cuda)
+    batches = [_host_batch(spec, 6), _host_batch(spec, 7, B=7), _host_batch(spec, 8)]
+    kept = [infer(tuple(x.numpy() for x in b)) for b in batches]
+    want = [_passed(infer, b, cuda) for b in batches]
+    torch.cuda.synchronize()
+    for got, w in zip(kept, want):
+        _assert_same(got, w)
+    assert infer.staging == {"staged": 3, "passed": 3, "remade": 2}
+
+
+def test_staged_eval_call_does_not_sync(cuda):
+    """A steady-state cashmrV2 call (the ring's slots both used once) runs
+    no synchronizing CUDA operation: only the slot's event is waited on."""
+    infer, spec = _eval_step("cashmrV2", cuda)
+    batches = [_host_batch(spec, seed) for seed in (9, 10)]
+    for b in batches:
+        infer(b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = infer(batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(out["keypoints_3d_17"]).all()
