@@ -11,7 +11,8 @@ modality's values go through every modality's map and are summed:
 with per-modality gains `gamma` that start at zero, so the module is the
 identity at its initialization.  In a bfloat16 model the attention runs
 in bfloat16 and the sums, as in JAX, in float32: the fused maps leave the
-module in float32.
+module in float32.  Each call of `CrossAttention` is an `hmr.cross_att`
+span.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..utils.profiling import span
 from .layers import Conv2d
 
 
@@ -46,21 +48,23 @@ class CrossAttention(nn.Module):
         self.gamma = nn.Parameter(torch.zeros(n))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
-        B, C, H, W = feats[0].shape
-        # energy[b, n, m] = q[b, n] . k[b, m], softmax over m.
-        atts = [torch.softmax(_tokens(self.query_conv(x)) @ _tokens(self.key_conv(x)).transpose(1, 2), dim=-1)
-                for x in feats]
-        outs = []
-        for x in feats:
-            v = _tokens(self.value_conv(x))
-            acc = _tokens(x)
-            for i, att in enumerate(atts):
-                # In a bfloat16 model the product is cast to gamma's float32
-                # first: JAX promotes bfloat16 x float32 to float32, where a
-                # 0-dim float32 tensor would leave it bfloat16 here.
-                acc = acc + self.gamma[i] * (att @ v).to(self.gamma.dtype)
-            outs.append(acc.transpose(1, 2).reshape(B, C, H, W))
-        return torch.cat(outs, dim=1)
+        with span("hmr.cross_att"):
+            B, C, H, W = feats[0].shape
+            # energy[b, n, m] = q[b, n] . k[b, m], softmax over m.
+            atts = [torch.softmax(_tokens(self.query_conv(x)) @ _tokens(self.key_conv(x)).transpose(1, 2), dim=-1)
+                    for x in feats]
+            outs = []
+            for x in feats:
+                v = _tokens(self.value_conv(x))
+                acc = _tokens(x)
+                for i, att in enumerate(atts):
+                    # In a bfloat16 model the product is cast to gamma's
+                    # float32 first: JAX promotes bfloat16 x float32 to
+                    # float32, where a 0-dim float32 tensor would leave it
+                    # bfloat16 here.
+                    acc = acc + self.gamma[i] * (att @ v).to(self.gamma.dtype)
+                outs.append(acc.transpose(1, 2).reshape(B, C, H, W))
+            return torch.cat(outs, dim=1)
 
 
 class SelfAttention(nn.Module):

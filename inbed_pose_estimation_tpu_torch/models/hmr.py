@@ -138,6 +138,7 @@ class MultiTrunkCore(nn.Module):
     departs from the reference here, each decoder's first level takes the
     fused x4's width (2048 * n) while its skips keep one trunk's widths: the
     reference's decoder expected fused skips too and would not have run.
+    The loop over the trunks is an `hmr.multi_trunk` span.
     """
 
     compute_dtype: Optional[torch.dtype] = None
@@ -166,7 +167,9 @@ class MultiTrunkCore(nn.Module):
         rest as `HMRCore.forward`."""
         if len(inputs) != len(self.trunk_names):
             raise ValueError(f"{len(inputs)} inputs for the trunks {self.trunk_names}")
-        pyramids = [getattr(self, f"feat_extraction_{name}").pyramid(x) for name, x in zip(self.trunk_names, inputs)]
+        with span("hmr.multi_trunk"):
+            pyramids = [getattr(self, f"feat_extraction_{name}").pyramid(x)
+                        for name, x in zip(self.trunk_names, inputs)]
         x4s = [p[4] for p in pyramids]
         x4 = self.cross_att(x4s) if self.cross_att is not None else torch.cat(x4s, dim=1)
         recon = _decode(self, pyramids[self.skip_trunk][:4] + (x4,)) if compute_recon else {}

@@ -1,7 +1,8 @@
-"""PyTorch port, its spans on the CPU (RES 64, batch 2): a cashmrV2 and an
-ir_depth_pm_fusion eval call and a cashmrV2 train step with SMPLify under
-torch.profiler, read back from the exported Chrome trace: each span's
-count per call and its place in the tree under `eval.call` / `train.step`;
+"""PyTorch port, its spans on the CPU (RES 64, batch 2): a cashmrV2, an
+ir_depth_pm_fusion and a featatt_cashmr eval call and a cashmrV2 train
+step with SMPLify under torch.profiler, read back from the exported Chrome
+trace: each span's count per call and its place in the tree under
+`eval.call` / `train.step`;
 the outputs bitwise equal with the profiler on and off; no
 `record_function` at all with no profiler running; and `StepTimer`'s
 phases as `<scope>.<phase>` spans."""
@@ -29,7 +30,11 @@ EVAL_SPANS = {
                  "eval.j17": 1},
     "ir_depth_pm_fusion": {"eval.call": 1, "eval.h2d": 1, "hmr.trunk": 4, "fusion.recover": 2, "hmr.ief": 4,
                            "smpl.lbs": 3, "ops.body_mask": 2, "eval.j17": 1},
+    "featatt_cashmr": {"eval.call": 1, "eval.h2d": 1, "hmr.multi_trunk": 2, "hmr.trunk": 8, "hmr.cross_att": 2,
+                       "hmr.decoder": 1, "hmr.ief": 2, "smpl.lbs": 1, "eval.j17": 1},
 }
+# The direct parent span of a span, where it is not `eval.call`.
+EVAL_PARENTS = {"featatt_cashmr": {"hmr.trunk": "hmr.multi_trunk"}}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -103,6 +108,8 @@ def test_eval_call_spans(name, smpl, tmp_path):
     per_call = Counter(n for i, (n, _) in enumerate(tree) if i >= roots[1])
     assert per_call == Counter(EVAL_SPANS[name])
     assert {tree[i][1] for i, (n, _) in enumerate(tree) if n == "eval.h2d"} == set(roots)
+    for child, parent in EVAL_PARENTS.get(name, {}).items():
+        assert {tree[p][0] for n, p in tree if n == child} == {parent}, child
     for out in outs:
         assert out.keys() == want.keys()
         for k, v in want.items():
