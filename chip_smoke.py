@@ -217,6 +217,16 @@ FAMILY_EVAL_LAUNCHES = {"featatt_cashmr": 1, "ir_depth_featatt_cashmrV2": 1, "ir
 # trunks over two passes fit at batch 64 (peak 68.3 GiB allocated, 77.0 GiB
 # reserved, of the 80 GB; PERF.md section 5), so nothing is cut.
 FAMILY_TRAIN = {"featatt_cashmr": (64, 206), "ir_depth_fusion": (64, 207), "ir_depth_pm_fusion": (64, 208)}
+# The decoders' shuffled projection kernel: its launches in one eval call
+# (one per image decoder that the call runs: pass 0's Reconstruct, each
+# recovery decoder of a fusion model, the guide's and the main stage's in a
+# frozen pipeline) and in one train step (only the frozen guide runs without
+# autograd, its two recovery decoders).
+FAMILY_PROJECTIONS = {"featatt_cashmr": 1, "ir_depth_featatt_cashmrV2": 2, "ir_depth_fusion": 2,
+                      "ir_depth_pm_fusion": 4}
+FAMILY_TRAIN_PROJECTIONS = {"featatt_cashmr": 0, "ir_depth_fusion": 0, "ir_depth_pm_fusion": 2}
+# The projection kernel's launches read by the phases, for the final kernels line.
+projection_launches = {}
 # The same weights on the card and on the CPU at RES 64, batch 2: the
 # largest absolute differences, and the body-mask pixels that may differ.
 # The card read rotmat 1.2e-7, betas 1.9e-9, cam 3.7e-9, keypoints 2.4e-7
@@ -1039,6 +1049,7 @@ def families_eval_driver(torch, np, dev, smi, base):
     their skinning launches."""
     import eval_gpu
 
+    from inbed_pose_estimation_tpu_torch.ops import shuffle_project as sp
     from inbed_pose_estimation_tpu_torch.ops import skinning as sk
 
     guide = f"{base}/guide.pt"
@@ -1049,16 +1060,21 @@ def families_eval_driver(torch, np, dev, smi, base):
         args = ["--model", name, "--allow_synthetic_assets", "--dataset", split, *extra, "--device", dev.type]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        sk.launches = 0
+        sk.launches = sp.launches = 0
         r = eval_gpu.main(args)[split]
         torch.cuda.synchronize()
         launches[name] = sk.launches
+        projection_launches.setdefault("families_eval_driver", {})[name] = sp.launches
         expected = FAMILY_EVAL_LAUNCHES[name] * batches
-        log("families_eval_driver", args=args, launches={"skinning": sk.launches}, expected=expected,
+        log("families_eval_driver", args=args, launches={"skinning": sk.launches, "shuffle_project": sp.launches},
+            expected=expected, expected_shuffle_project=FAMILY_PROJECTIONS[name] * batches,
             batches=batches, images_per_s=r["timing"]["images_per_s"], seconds=r["timing"]["seconds"],
             loader_wait_s=r["timing"]["loader_wait_s"], peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
             mpjpe=r["mpjpe"], pa_mpjpe=r["pa_mpjpe"], mask_f1=r["mask_f1"], card=smi)
         check(sk.launches == expected, f"eval_gpu --model {name}: {sk.launches} skinning launches, expected {expected}")
+        check(sp.launches == FAMILY_PROJECTIONS[name] * batches,
+              f"eval_gpu --model {name}: {sp.launches} shuffled projection launches, "
+              f"expected {FAMILY_PROJECTIONS[name] * batches}")
         check(r["timing"]["images"] == EVAL_SAMPLES and np.isfinite(r["mpjpe"]) and r["pa_mpjpe"] <= r["mpjpe"],
               f"eval_gpu --model {name}: metrics {r['mpjpe']} / {r['pa_mpjpe']}")
     return launches
@@ -1112,6 +1128,7 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
     from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
     from inbed_pose_estimation_tpu_torch.models import build_model, model_names
     from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
+    from inbed_pose_estimation_tpu_torch.ops import shuffle_project as sp
     from inbed_pose_estimation_tpu_torch.ops import skinning as sk
     from inbed_pose_estimation_tpu_torch.ops.mask_raster import render_body_mask
     from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
@@ -1143,12 +1160,15 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
                        .to(dev) for m in spec.modalities)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        sk.launches = 0
+        sk.launches = sp.launches = 0
         out = infer(inputs)
         torch.cuda.synchronize()
         eval_launches[name] = sk.launches
+        projection_launches.setdefault("families_eval", {})[name] = sp.launches
         check(sk.launches == expected, f"{name}: skinning launched {sk.launches} times in one eval call, "
                                        f"expected {expected}")
+        check(sp.launches == FAMILY_PROJECTIONS[name], f"{name}: shuffled projection launched {sp.launches} times in "
+                                                       f"one eval call, expected {FAMILY_PROJECTIONS[name]}")
         check(tuple(out["vertices"].shape) == (BATCH, V, 3) and tuple(out["keypoints_3d_17"].shape) == (BATCH, 17, 3),
               f"{name}: output shapes")
         for key in ("rotmat", "betas", "cam", "vertices", "keypoints_3d_17"):
@@ -1169,7 +1189,8 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
         check(sk.launches - before == expected * TIMED_CALLS, f"{name}: launches in the timed loop")
         with torch.no_grad(), FlopCounterMode(display=False) as counter:
             infer(inputs)
-        log("families_eval", model=name, batch=BATCH, res=RES, launches={"skinning": eval_launches[name]},
+        log("families_eval", model=name, batch=BATCH, res=RES,
+            launches={"skinning": eval_launches[name], "shuffle_project": projection_launches["families_eval"][name]},
             expected=expected, images_per_s=BATCH * TIMED_CALLS / seconds, ms_per_batch=1e3 * seconds / TIMED_CALLS,
             calls=TIMED_CALLS, tflop_per_batch=counter.get_total_flops() / 1e12,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=smi)
@@ -1238,14 +1259,18 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
         params0 = [p.detach().clone() for p in state.optimizer.param_groups[0]["params"]]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        sk.launches = 0
+        sk.launches = sp.launches = 0
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         train_launches[name] = sk.launches
+        projection_launches.setdefault("families_train_step", {})[name] = sp.launches
         check(sk.launches == expected, f"{name}: skinning launched {sk.launches} times in one train step, "
                                        f"expected {expected} (N = {N})")
+        check(sp.launches == FAMILY_TRAIN_PROJECTIONS[name], f"{name}: shuffled projection launched {sp.launches} "
+                                                             f"times in one train step, expected "
+                                                             f"{FAMILY_TRAIN_PROJECTIONS[name]}")
         check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"{name} train step: a non-finite metric")
         moved = sum(int(not torch.equal(a, p)) for a, p in zip(params0, state.optimizer.param_groups[0]["params"]))
         del params0
@@ -1260,7 +1285,8 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
         if guide0 is not None:
             check(guide_unchanged(torch, model, guide0), f"{name}: the frozen guide changed in training")
         log("families_train_step", model=name, batch=B, res=RES, num_smplify_iters=N,
-            launches={"skinning": train_launches[name]}, expected=expected, first_step_s=first_s, ms_per_step=ms,
+            launches={"skinning": train_launches[name],
+                      "shuffle_project": projection_launches["families_train_step"][name]}, expected=expected, first_step_s=first_s, ms_per_step=ms,
             images_per_s=1e3 * B / ms, params_moved=moved,
             trained_params=len(state.optimizer.param_groups[0]["params"]),
             guide_unchanged=guide0 is not None, metrics={k: v.item() for k, v in metrics.items()},
@@ -2335,6 +2361,7 @@ def main() -> int:
 
     import numpy as np
 
+    from inbed_pose_estimation_tpu_torch.device import resolve_device
     from inbed_pose_estimation_tpu_torch.evaluation import (
         eval_metrics, load_j_regressor_h36m, make_forward_fn, make_inference_fn, regress_j17,
     )
@@ -2342,6 +2369,7 @@ def main() -> int:
     from inbed_pose_estimation_tpu_torch.models import build_model
     from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
     from inbed_pose_estimation_tpu_torch.ops import build
+    from inbed_pose_estimation_tpu_torch.ops import shuffle_project as sp
     from inbed_pose_estimation_tpu_torch.ops import skinning as sk
     from inbed_pose_estimation_tpu_torch.smpl import lbs, synthetic_smpl_model
 
@@ -2518,6 +2546,57 @@ def main() -> int:
             share_of_bound=bound_ms / timing[b]["ms"], single_node_floor_ms=floor_ms,
             chunk=sk.batch_chunk(b, V), ms_by_chunk=by_chunk, card=smi)
 
+    # The decoders' shuffled one-channel projection at its two shapes:
+    # Reconstruct's last stage in cashmrV2 and featatt_cashmr (a 512-channel
+    # pre-shuffle map at 112^2, a BatchNorm with a shift of a few units, no
+    # bias) and a fusion dec*3 (256 channels, no BatchNorm, a bias).  The
+    # kernel against its plain version, then its device time, the plain
+    # version's and the modules' (PixelShuffle, the eval BatchNorm, the cuDNN
+    # convolution) as K1's are timed, in graphs of 10 calls for the two whose
+    # every call writes the whole shuffled map.
+    def projection_bound(c):
+        nbytes = 4 * (BATCH * 4 * c * (RES // 2) ** 2 + BATCH * RES ** 2 + 9 * c + 4 * c + 1)
+        flops = 2 * 9 * c * BATCH * RES ** 2
+        bytes_ms, flops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+        return nbytes, flops, max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+    resolve_device(dev)  # TF32 off: the plain version and the modules convolve in float32, as the port does
+    projection = {}
+    for c, with_norm in ((128, True), (64, False)):
+        t0 = time.perf_counter()
+        pre = torch.randn(BATCH, 4 * c, RES // 2, RES // 2, generator=gen, device=dev)
+        tail = torch.nn.Sequential(torch.nn.PixelShuffle(2), torch.nn.BatchNorm2d(c) if with_norm else
+                                   torch.nn.Identity(), torch.nn.Conv2d(c, 1, 3, padding=1, bias=not with_norm))
+        tail.to(dev).eval().requires_grad_(False)
+        with torch.no_grad():
+            if with_norm:
+                bn = tail[1]
+                for t, draw in ((bn.running_mean, torch.randn(c)), (bn.running_var, torch.rand(c) + 0.5),
+                                (bn.weight, torch.rand(c) + 0.5), (bn.bias, 4 * torch.randn(c))):
+                    t.copy_(draw)
+        args = [tail[2].weight, sp.batch_norm_terms(tail[1]) if with_norm else None, tail[2].bias]
+        want = sp.shuffle_project_reference(pre, *args)
+        err = ((sp.shuffle_project(pre, *args) - want).abs().max() / want.abs().max()).item()
+        check_s = time.perf_counter() - t0
+        log("shuffle_project", channels=c, batch_norm=with_norm, bias=not with_norm, max_err_over_max_abs=err,
+            tolerance=1e-5, seconds=check_s)
+        check(err <= 1e-5, f"shuffled projection kernel disagrees with shuffle_project_reference at C={c}")
+        del want
+        t0 = time.perf_counter()
+        nbytes, flops, bound_ms, bound_by = projection_bound(c)
+        projection[c] = {
+            "ms": graph_ms(lambda: sp.shuffle_project(pre, *args)),
+            "plain_ms": graph_ms(lambda: sp.shuffle_project_reference(pre, *args), reps=10),
+            "library_ms": graph_ms(lambda: tail(pre), reps=10),
+            "eager_ms": cuda_ms(lambda: sp.shuffle_project(pre, *args), 50),
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_err_over_max_abs": err,
+        }
+        log("shuffle_project_time", channels=c, batch=BATCH, pre_shuffle=list(pre.shape), **projection[c],
+            bytes=nbytes, flops=flops, share_of_bound=bound_ms / projection[c]["ms"],
+            seconds=time.perf_counter() - t0, card=smi)
+        del pre, args, tail
+    torch.cuda.empty_cache()
+
     # 4. main path
     torch.manual_seed(SEED)  # module initializers draw from torch's default generator
     model, spec = build_model(MODEL, device=dev)
@@ -2527,12 +2606,14 @@ def main() -> int:
     inputs = tuple(torch.from_numpy(rng.normal(0, 1, (BATCH, MODALITY_CHANNELS[m], RES, RES)).astype(np.float32)).to(dev)
                    for m in spec.modalities)
 
-    sk.launches = 0
+    sk.launches = sp.launches = 0
     out = infer(inputs)
     torch.cuda.synchronize()
-    counts = {"skinning": sk.launches}
+    counts = {"skinning": sk.launches, "shuffle_project": sp.launches}
     log("main_path", model=MODEL, batch=BATCH, res=RES, num_cas_iters=NUM_CAS_ITERS, launches=counts)
     check(counts["skinning"] == 1, f"skinning kernel launched {counts['skinning']} times in one call, expected 1")
+    check(counts["shuffle_project"] == 1,
+          f"shuffled projection kernel launched {counts['shuffle_project']} times in one call, expected 1")
 
     k3d = out["keypoints_3d_17"]
     check(tuple(out["vertices"].shape) == (BATCH, V, 3) and tuple(k3d.shape) == (BATCH, 17, 3), "output shapes")
@@ -2677,6 +2758,19 @@ def main() -> int:
         "launches_dp_eval_per_rank_step_batch": launches_dp_eval_per_rank_step,
         "launches_dp_train_driver_step": launches_dp_train_driver_step,
         "launches_dp_eval_driver_one_rank": launches_dp_eval_one_rank,
+    }, {
+        "name": "shuffle_project", "route": "cuda",
+        "source": "inbed_pose_estimation_tpu_torch/ops/csrc/shuffle_project.cu",
+        "replaces": "none (the JAX package's jnp SmallOCConv3x3, inbed_pose_estimation_tpu/models/decoder.py:33)",
+        "launches": counts["shuffle_project"], "max_err_over_max_abs": projection[128]["max_err_over_max_abs"],
+        "ms": projection[128]["ms"], "plain_ms": projection[128]["plain_ms"],
+        "bound_ms": projection[128]["bound_ms"], "bound_by": projection[128]["bound_by"],
+        "library_ms": projection[128]["library_ms"], "eager_ms": projection[128]["eager_ms"],
+        "max_err_over_max_abs_c64": projection[64]["max_err_over_max_abs"],
+        "ms_c64": projection[64]["ms"], "plain_ms_c64": projection[64]["plain_ms"],
+        "bound_ms_c64": projection[64]["bound_ms"], "bound_by_c64": projection[64]["bound_by"],
+        "library_ms_c64": projection[64]["library_ms"], "eager_ms_c64": projection[64]["eager_ms"],
+        **{f"launches_{k}": v for k, v in projection_launches.items()},
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

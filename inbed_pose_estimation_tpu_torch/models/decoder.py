@@ -3,6 +3,16 @@
 The plain forms of the reference ops: the upsampler is conv3x3 (n -> 4n)
 -> PixelShuffle(2) -> BatchNorm2d(n), each level's skip join is
 `cat((skip, h), 1)` -> 1x1 conv, and the projection is Conv2d(128, 1, 3).
+
+The last stage, PixelShuffle -> BatchNorm -> projection, runs as one CUDA
+kernel (`ops/shuffle_project.py`) from the last upsampler convolution's
+output where `fused_route` allows it: float32 on the card, without
+autograd, BatchNorm on its running statistics.  It gives the modules'
+output bit for bit there.  The fusion family's recovery decoders end the
+same way without the BatchNorm.  The modules and their parameter names
+stay; whatever runs under autograd, recompute and bfloat16 run them (the
+frozen fusion guide, which runs without autograd, takes the kernel in a
+training step too).
 """
 
 from __future__ import annotations
@@ -10,8 +20,28 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.shuffle_project import batch_norm_terms, shuffle_project
+from ..utils.profiling import span
 from .backbone import BatchNorm2d
 from .layers import Conv2d
+
+
+def fused_route(h, proj: Conv2d, bn=None) -> bool:
+    """Whether proj(bn(PixelShuffle(2)(h))) runs as the one kernel: h float32
+    on the card, proj computing in it, no autograd, and the BatchNorm (if
+    any) normalizing with its running statistics."""
+    return (h.device.type == "cuda" and h.dtype == torch.float32 and proj.compute_dtype is None
+            and not torch.is_grad_enabled() and (bn is None or not bn.training))
+
+
+def project_shuffled(h, shuffle: nn.PixelShuffle, proj: Conv2d, bn=None):
+    """proj(bn(shuffle(h))) from the pre-shuffle map h (no bn when None):
+    one kernel launch on the fused route, the modules otherwise."""
+    if fused_route(h, proj, bn):
+        with span("ops.shuffle_project"):
+            return shuffle_project(h, proj.weight, None if bn is None else batch_norm_terms(bn), proj.bias)
+    h = shuffle(h)
+    return proj(h if bn is None else bn(h))
 
 
 class ResBlock(nn.Module):
@@ -72,4 +102,5 @@ class Reconstruct(nn.Module):
         h = self.decDepth2(torch.cat((x3, h), 1))
         h = self.decDepth3(torch.cat((x2, h), 1))
         h = self.decDepth4(torch.cat((x1, h), 1))
-        return self.decDepth(torch.cat((x0, h), 1))
+        join, res1, res2, (up, shuffle, bn), proj = self.decDepth
+        return project_shuffled(up(res2(res1(join(torch.cat((x0, h), 1))))), shuffle, proj, bn)

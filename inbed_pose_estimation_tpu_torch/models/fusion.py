@@ -23,7 +23,8 @@ follows the JAX package, which builds the reference class's evident intent
 
 Parameter names are the reference's: encoder_1.*, dec1.{0,2,4,6} (the
 upsampler's convs), dec{IR,Depth,PM}2 (strided conv, ResBlock) and
-dec{IR,Depth,PM}3 (conv, ResBlock, PixelShuffle, projection).  The frozen
+dec{IR,Depth,PM}3 (conv, ResBlock, PixelShuffle, projection; in eval the
+last two run as one kernel, `decoder.project_shuffled`).  The frozen
 pipelines nest two such trees as guide.* and main.*; `weights.flax_path`
 maps them onto the flax tree's guide/ and main/.
 
@@ -43,7 +44,7 @@ from torch import nn
 from ..ops.mask_raster import render_body_mask
 from ..smpl.model import SMPLModel, lbs
 from ..utils.profiling import span
-from .decoder import ResBlock
+from .decoder import ResBlock, project_shuffled
 from .hmr import HMRCore, HMROutput
 from .layers import Conv2d
 
@@ -110,7 +111,8 @@ class TwoStageFusion(nn.Module):
             for head, slot in self.slot_of.items():
                 name = HEAD_NAME[head]
                 h = getattr(self, f"dec{name}2")(inputs[slot] * mask)
-                recovered[head] = getattr(self, f"dec{name}3")(torch.cat([feat_up, h, x0], dim=1))
+                conv, res, shuffle, proj = getattr(self, f"dec{name}3")
+                recovered[head] = project_shuffled(res(conv(torch.cat([feat_up, h, x0], dim=1))), shuffle, proj)
 
         head_of_slot = {s: h for h, s in self.slot_of.items()}
         stage2_in = [recovered[head_of_slot[i]] if i in head_of_slot else x for i, x in enumerate(inputs)]

@@ -1,7 +1,9 @@
 """PyTorch port on the card: the CUDA skinning kernel against its plain
 version, SMPLify through it, the training step on the card against the
 CPU, the uint8 feed decoded on the card, K2-K5 on the card against the
-CPU, and the eval entry's pinned staging ring.  Every test needs a CUDA device and skips without one (a CUDA
+CPU, the eval entry's pinned staging ring, and the decoders' shuffled
+one-channel projection kernel against its plain version and in whole eval
+calls.  Every test needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode); run them on the card with
 `python -m pytest tests/test_torch_port_cuda.py -m cuda`."""
 
@@ -10,6 +12,7 @@ import pytest
 import torch
 
 from inbed_pose_estimation_tpu_torch.geometry import batch_rodrigues
+from inbed_pose_estimation_tpu_torch.ops import shuffle_project as sp
 from inbed_pose_estimation_tpu_torch.ops import skinning as sk
 from inbed_pose_estimation_tpu_torch.smpl import lbs, synthetic_smpl_model
 
@@ -329,15 +332,17 @@ def test_uint8_feed_decodes_on_card_as_on_cpu(cuda, monkeypatch):
 EVAL_B, EVAL_RES = 32, 224
 
 
-def _eval_step(name, cuda):
+def _eval_step(name, cuda, prepare=None):
     """make_inference_fn over `name` with seeded weights and synthetic SMPL
     at the eval CLI's settings (224², two cascade passes, the last
-    without its decoder)."""
+    without its decoder); `prepare(model)` edits the model first."""
     from inbed_pose_estimation_tpu_torch.evaluation import load_j_regressor_h36m, make_inference_fn
     from inbed_pose_estimation_tpu_torch.models import build_model
 
     torch.manual_seed(0)
     model, spec = build_model(name, device=cuda, img_res=EVAL_RES)
+    if prepare is not None:
+        prepare(model)
     smpl = synthetic_smpl_model(0, device=cuda)
     infer = make_inference_fn(model, spec, smpl, load_j_regressor_h36m(num_vertices=smpl.v_template.shape[0]),
                               final_recon=False, device=cuda)
@@ -431,3 +436,194 @@ def test_staged_eval_call_does_not_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.isfinite(out["keypoints_3d_17"]).all()
+
+
+@pytest.fixture
+def float32_cuda(cuda):
+    """The card with TF32 off, as the port's entry points pin it
+    (`resolve_device`): the plain versions' cuDNN convolutions then run in
+    float32 whichever tests ran before."""
+    from inbed_pose_estimation_tpu_torch.device import resolve_device
+
+    return resolve_device(cuda)
+
+
+def _projection_operands(B, C, h, w, with_bn, bias, seed=0):
+    """A pre-shuffle map and a projection of decoder scale (weights within
+    1 / sqrt(9C), as Conv2d draws them); the BatchNorm's terms (mean,
+    invstd, gamma, beta) with a shift of a few units, so that a BatchNorm
+    reaching the padding shows."""
+    g = torch.Generator().manual_seed(seed)
+    bound = (9 * C) ** -0.5
+    norm = torch.stack((torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5, torch.rand(C, generator=g) + 0.5,
+                        torch.randn(C, generator=g) * 4))
+    ops = (torch.randn(B, 4 * C, h, w, generator=g), (torch.rand(1, C, 3, 3, generator=g) * 2 - 1) * bound,
+           norm if with_bn else None, torch.randn(1, generator=g) if bias else None)
+    return [None if t is None else t.to("cuda") for t in ops]
+
+
+def _rounding_bound(x, weight, norm):
+    """Per output pixel, twice the float32 error bound of a sum of its 9C + 2
+    terms in any order: (9C + 2) * 2**-24 * sum |w| |a|, with a the
+    BatchNorm's output (the plain version rounds it once more)."""
+    import torch.nn.functional as F
+
+    a = F.pixel_shuffle(x, 2)
+    if norm is not None:
+        mean, invstd, gamma, beta = (t.view(1, -1, 1, 1) for t in norm)
+        a = gamma * (a - mean) * invstd + beta
+    return 2 * (weight.numel() + 2) * 2.0 ** -24 * F.conv2d(a.abs(), weight.abs(), padding=1)
+
+
+@pytest.mark.parametrize("B,C,h,w,with_bn,bias", [
+    (32, 128, 112, 112, True, False),  # Reconstruct's last stage in cashmrV2 and featatt_cashmr
+    (32, 64, 112, 112, False, True),   # a fusion dec*3
+    (3, 128, 15, 20, True, False),     # ragged: partial row tile, w below a column tile
+    (3, 64, 15, 20, False, True),
+    (2, 8, 9, 300, True, True),        # three column tiles
+])
+def test_shuffle_project_kernel_matches_plain(float32_cuda, B, C, h, w, with_bn, bias):
+    """The kernel against its plain version (pixel_shuffle, the BatchNorm
+    written out, cuDNN's conv2d, TF32 off) within the rounding bound of the
+    two sums, pixel by pixel; the border rows and columns, where the padding
+    enters after the BatchNorm, held on their own."""
+    x, weight, norm, b = _projection_operands(B, C, h, w, with_bn, bias)
+    before = sp.launches
+    got = sp.shuffle_project(x, weight, norm, b)
+    torch.cuda.synchronize()
+    assert sp.launches == before + 1
+    want = sp.shuffle_project_reference(x, weight, norm, b)
+    assert got.shape == want.shape == (B, 1, 2 * h, 2 * w)
+    over = (got - want).abs() / _rounding_bound(x, weight, norm)
+    for name, part in {"top": over[..., 0, :], "bottom": over[..., -1, :], "left": over[..., :, 0],
+                       "right": over[..., :, -1], "all": over}.items():
+        assert float(part.max()) <= 1.0, name
+
+
+@pytest.mark.parametrize("C", [128, 64])
+def test_shuffle_project_kernel_equals_the_modules_bit_for_bit(float32_cuda, C):
+    """At the decoders' shapes (B=32, a 112² pre-shuffle map) the kernel's
+    output is the modules' own, PixelShuffle -> BatchNorm2d (eval) ->
+    Conv2d(C, 1, 3) at 128 channels and PixelShuffle -> Conv2d(C, 1, 3)
+    with bias at 64, bit for bit: it computes torch's eval BatchNorm in its
+    own form and sums each output in the order of cuDNN's convolution."""
+    import torch.nn.functional as F
+    from torch import nn
+
+    cuda = float32_cuda
+    x, weight, _, b = _projection_operands(32, C, 112, 112, False, C == 64, seed=7)
+    bn = nn.BatchNorm2d(C).to(cuda).eval()
+    with torch.no_grad():
+        g = torch.Generator(cuda).manual_seed(8)
+        bn.running_mean.copy_(torch.randn(C, device=cuda, generator=g))
+        bn.running_var.copy_(torch.rand(C, device=cuda, generator=g) + 0.5)
+        bn.weight.copy_(torch.rand(C, device=cuda, generator=g) + 0.5)
+        bn.bias.copy_(4 * torch.randn(C, device=cuda, generator=g))
+        a = F.pixel_shuffle(x, 2)
+        want = F.conv2d(bn(a) if C == 128 else a, weight, b, padding=1)
+        got = sp.shuffle_project(x, weight, sp.batch_norm_terms(bn) if C == 128 else None, b)
+    assert torch.equal(got, want)
+
+
+def test_shuffle_project_kernel_rejects_what_it_does_not_take(cuda):
+    x, weight, norm, _ = _projection_operands(2, 8, 4, 6, True, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.shuffle_project(x.transpose(2, 3).contiguous().transpose(2, 3), weight, norm)
+    with pytest.raises(TypeError):
+        sp.shuffle_project(x.double(), weight.double(), norm.double())
+    with pytest.raises(ValueError, match="multiple of 4"):  # rows read in 16-byte pieces
+        sp.shuffle_project(x[..., :5].contiguous(), weight, norm)
+    with pytest.raises(ValueError, match="aligned"):
+        sp.shuffle_project(torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x).copy_(x), weight, norm)
+    with pytest.raises(RuntimeError, match="gradient"):
+        sp.shuffle_project(x.requires_grad_(True), weight, norm)
+
+
+def test_frozen_guide_recovers_as_the_modules_at_the_training_batch(cuda, monkeypatch):
+    """The frozen fusion guide runs without autograd in a training step
+    too, so ir_depth_pm_fusion's step at the train CLI's batch of 64 takes
+    the kernel twice, at 64 channels with a bias.  Each of those launches
+    equals the modules' PixelShuffle -> Conv2d(64, 1, 3) on the same
+    pre-shuffle map bit for bit, and the guide's recovered maps equal those
+    of the same call through the modules."""
+    import torch.nn.functional as F
+
+    from inbed_pose_estimation_tpu_torch.models import build_model, decoder
+
+    torch.manual_seed(0)
+    model, spec = build_model("ir_depth_pm_fusion", device=cuda, img_res=EVAL_RES)
+    model.train()
+    smpl = synthetic_smpl_model(0, device=cuda)
+    g = torch.Generator(cuda).manual_seed(12)
+    ir, depth = (torch.randn(64, 1, EVAL_RES, EVAL_RES, device=cuda, generator=g) for _ in range(2))
+    calls, launch = [], sp.shuffle_project
+    monkeypatch.setattr(decoder, "shuffle_project",
+                        lambda *args: calls.append((args, launch(*args))) or calls[-1][1])
+    before = sp.launches
+    with torch.no_grad():
+        fused = model.guide((ir, depth), smpl).recovered
+    assert sp.launches == before + 2 and len(calls) == 2
+    for (x, weight, norm, bias), got in calls:
+        assert norm is None and x.shape == (64, 256, 112, 112)
+        with torch.no_grad():
+            assert torch.equal(got, F.conv2d(F.pixel_shuffle(x, 2), weight, bias, padding=1))
+    calls.clear()
+    monkeypatch.setattr(decoder, "fused_route", lambda *args, **kwargs: False)
+    with torch.no_grad():
+        plain = model.guide((ir, depth), smpl).recovered
+    assert sp.launches == before + 2
+    for head in ("ir", "depth"):
+        assert torch.equal(fused[head], plain[head]), head
+
+
+def _moved_decoder_tails(model, seed=5):
+    """The last BatchNorm of each Reconstruct off its init values, with a
+    shift of a few units (as a trained decoder's)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name.endswith("decDepth.3.2"):
+                n = m.num_features
+                m.running_mean.copy_(torch.randn(n, generator=g))
+                m.running_var.copy_(torch.rand(n, generator=g) + 0.5)
+                m.weight.copy_(torch.rand(n, generator=g) + 0.5)
+                m.bias.copy_(torch.randn(n, generator=g) * 4)
+
+
+# The benchmark's limits of `correct` (benchmark/limits/): the largest gap
+# over the largest magnitude of the reference.
+EVAL_LIMITS = {"rotmat": 2e-5, "betas": 1e-5, "cam": 1e-5, "vertices": 2e-5, "keypoints_3d_17": 2e-5}
+
+
+@pytest.mark.parametrize("name,stages", [("cashmrV2", 1), ("featatt_cashmr", 1), ("ir_depth_pm_fusion", 4)])
+def test_eval_call_through_the_fused_tails_matches_the_modules(cuda, monkeypatch, name, stages):
+    """A whole eval call at B=32, 224² launches the kernel once per decoder
+    stage it runs (the cascade's pass 0 in cashmrV2 and featatt_cashmr, the
+    guide's and the main stage's two recovery decoders in the fusion), and
+    answers as the same call through the modules does, within the
+    benchmark's limits.  The fusion's body masks of the first call are
+    replayed in the second: a mask is a rasterization, and a vertex moved
+    by rounding can flip one of its pixels (the benchmark's check follows
+    the program's masks the same way)."""
+    from inbed_pose_estimation_tpu_torch.models import decoder, fusion
+
+    infer, spec = _eval_step(name, cuda, prepare=_moved_decoder_tails)
+    batch = _host_batch(spec, 11)
+    masks, render = [], fusion.render_body_mask
+    monkeypatch.setattr(fusion, "render_body_mask", lambda *args, **kwargs: masks.append(render(*args, **kwargs))
+                        or masks[-1])
+    before = sp.launches
+    fused = infer(batch)
+    torch.cuda.synchronize()
+    assert sp.launches == before + stages
+    assert len(masks) == (2 if stages == 4 else 0)
+    monkeypatch.setattr(fusion, "render_body_mask", lambda *args, **kwargs: masks.pop(0))
+    monkeypatch.setattr(decoder, "fused_route", lambda *args, **kwargs: False)
+    plain = infer(batch)
+    torch.cuda.synchronize()
+    assert sp.launches == before + stages
+    for k, limit in EVAL_LIMITS.items():
+        gap = float((fused[k] - plain[k]).abs().max() / plain[k].abs().max())
+        assert gap <= limit, (k, gap)
+    for k, v in plain["recon"].items():
+        assert float((fused["recon"][k] - v).abs().max() / v.abs().max()) <= 2e-5, k
