@@ -10,24 +10,16 @@ gains zeroed, where the cross attention is the identity, misses by more."""
 import json
 import pathlib
 
-import pytest
 import torch
 
 from benchmark import harness, program, smpl_assets, traffic_gen, weights
 from benchmark.reference import nets
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RES, B, SEED = 64, 2, 2**31 + 16
 KEYS = ("rotmat", "betas", "cam", "vertices", "keypoints_3d_17")
 TOL = 1e-6  # the same float32 arithmetic on the CPU; the port reads 0 here
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _run():

@@ -31,21 +31,12 @@ from inbed_pose_estimation_tpu_torch.train import init_train_state, make_train_s
 from inbed_pose_estimation_tpu_torch.weights import load_jax_variables
 from tests.test_torch_port_bodies_at_rest import jax_variables as bar_variables
 from tests.test_torch_port_multi import CHANNELS, GAMMA, jax_variables, nhwc
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B = 64, 2
 RATIO = 1.5
 SEEDS = (1, 2, 3, 4)
 FLOOR = {"rotmat": 5e-4, "betas": 2e-4, "cam": 2e-4, "depth": 5e-4, "keypoints_3d_17": 1e-3}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for torch in this module: six test workers share
-    the machine's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -52,20 +52,11 @@ from inbed_pose_estimation_tpu_torch.train.checkpoint import load_torch_checkpoi
 from inbed_pose_estimation_tpu_torch.weights import (
     fc1_rows_from_flax, fc1_rows_to_flax, flax_path, load_jax_adam_state, load_jax_variables,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B = 64, 2
 CHANNELS = {"bodiesAtRest": 3, "bodiesAtRest4mod": 8}
 IDENTITY_6D = np.tile(np.array([1, 0, 0, 1, 0, 0], np.float32), 24)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for torch in this module: six test workers share
-    the machine's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _NoDropout:

@@ -25,6 +25,7 @@ from inbed_pose_estimation_tpu_torch.data import crop_cache as cc
 from inbed_pose_estimation_tpu_torch.data.dataset import BaseDataset
 from inbed_pose_estimation_tpu_torch.ops import native
 from inbed_pose_estimation_tpu_torch.tools.build_crop_cache import main as build_tool
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES = 64
 TRAIN, EVAL = "slp-4mod-train", "slp-4mod-cover1"

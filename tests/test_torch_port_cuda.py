@@ -15,6 +15,7 @@ from inbed_pose_estimation_tpu_torch.geometry import batch_rodrigues
 from inbed_pose_estimation_tpu_torch.ops import shuffle_project as sp
 from inbed_pose_estimation_tpu_torch.ops import skinning as sk
 from inbed_pose_estimation_tpu_torch.smpl import lbs, synthetic_smpl_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

@@ -38,6 +38,7 @@ from inbed_pose_estimation_tpu_torch.data.loader import CheckpointDataLoader, co
 from inbed_pose_estimation_tpu_torch.data.synthetic import write_synthetic_environment
 from inbed_pose_estimation_tpu_torch.ops import tri_raster
 from inbed_pose_estimation_tpu_torch.render import PartRenderer
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES = 64
 SPLITS = ("slp-4mod-uncover", "slp-4mod-cover1", "3dpw")

@@ -32,6 +32,7 @@ from inbed_pose_estimation_tpu_torch.geometry import batch_rodrigues
 from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
 from inbed_pose_estimation_tpu_torch.weights import load_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B = 64, 2
 SPLITS = ("slp-4mod-uncover", "3dpw")

@@ -14,6 +14,7 @@ from inbed_pose_estimation_tpu.smpl import synthetic_smpl_model as j_synthetic
 from inbed_pose_estimation_tpu_torch import fitting as tfit
 from inbed_pose_estimation_tpu_torch.ops import skinning as sk
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, RES, N_ITERS = 2, 64, 3
 RTOL = 1e-5

@@ -28,21 +28,10 @@ from inbed_pose_estimation_tpu_torch.train import init_train_state, make_train_s
 from inbed_pose_estimation_tpu_torch.train.checkpoint import load_guide
 from inbed_pose_estimation_tpu_torch.weights import load_jax_variables
 from tests.test_torch_port_multi import CHANNELS, RES, Opt, jax_variables, modalities, nhwc, to_flax, train_batch
+from torch_threads import one_torch_thread  # noqa: F401
 
 B = 2
 FUSION = [n for n in model_names() if get_spec(n).input_mode == "fusion"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for torch in this module: the parallel test run
-    puts six workers on the machine's cores, and torch's thread pool, each
-    worker as wide as the machine, spends more time contending than
-    computing (the port's train step here took 40x its time alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

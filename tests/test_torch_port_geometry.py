@@ -9,6 +9,7 @@ import torch
 
 from inbed_pose_estimation_tpu import geometry as jgeo
 from inbed_pose_estimation_tpu_torch import geometry as tgeo
+from torch_threads import one_torch_thread  # noqa: F401
 
 # float32 elementwise math in two frameworks: rounding-level differences.
 ATOL = 1e-6

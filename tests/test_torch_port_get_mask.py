@@ -22,6 +22,7 @@ import pytest
 from inbed_pose_estimation_tpu_torch.data.image_io import read_gray_u8, read_rgb_u8
 from inbed_pose_estimation_tpu_torch.data.synthetic import write_synthetic_danalab
 from inbed_pose_estimation_tpu_torch.tools import get_mask
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_IMGS = 3

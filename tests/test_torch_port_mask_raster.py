@@ -14,6 +14,7 @@ from inbed_pose_estimation_tpu.ops.mask_raster import splat_points_to_mask as j_
 from inbed_pose_estimation_tpu_torch.geometry import batch_rodrigues
 from inbed_pose_estimation_tpu_torch.ops.mask_raster import render_body_mask, splat_points_to_mask
 from inbed_pose_estimation_tpu_torch.smpl import lbs, synthetic_smpl_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _points(height, width, seed):

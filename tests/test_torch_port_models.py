@@ -20,6 +20,7 @@ from inbed_pose_estimation_tpu_torch.evaluation import eval_metrics, load_j_regr
 from inbed_pose_estimation_tpu_torch.models import build_model, get_spec, model_names
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
 from inbed_pose_estimation_tpu_torch.weights import load_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B = 64, 2
 

@@ -28,22 +28,11 @@ from inbed_pose_estimation_tpu_torch.models import CrossAttention, SelfAttention
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
 from inbed_pose_estimation_tpu_torch.weights import flax_path, load_jax_variables
 from tests.test_torch_port_models import _perturb_bn
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B = 64, 2
 CHANNELS = {"img": 3}
 GAMMA = np.array([0.5, -0.3, 0.2, 0.4], np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for torch in this module: the parallel test run
-    puts six workers on the machine's cores, and torch's thread pool, each
-    worker as wide as the machine, spends more time contending than
-    computing (the port's train step here took 40x its time alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def nhwc(x):

@@ -30,6 +30,7 @@ from inbed_pose_estimation_tpu_torch.evaluation import run_evaluation
 from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.parallel import dryrun, mesh
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = 2
@@ -397,17 +398,12 @@ def test_run_evaluation_on_two_ranks_matches_one_process(tree, tmp_path):
 
     for d in ("one", "ranks"):
         (tmp_path / d).mkdir()
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        torch.manual_seed(0)
-        model, spec = build_model("cashmrV2", device="cpu")
-        want = run_evaluation(model, spec, "slp-4mod-uncover", BaseDataset(Opt(), "slp-4mod-uncover", is_train=False),
-                              synthetic_smpl_model(0, device="cpu"), checkpoint_dir=str(tmp_path / "one"),
-                              result_file=str(tmp_path / "one_res"), batch_size=4, img_res=64, num_workers=1,
-                              device="cpu")
-    finally:
-        torch.set_num_threads(threads)
+    torch.manual_seed(0)
+    model, spec = build_model("cashmrV2", device="cpu")
+    want = run_evaluation(model, spec, "slp-4mod-uncover", BaseDataset(Opt(), "slp-4mod-uncover", is_train=False),
+                          synthetic_smpl_model(0, device="cpu"), checkpoint_dir=str(tmp_path / "one"),
+                          result_file=str(tmp_path / "one_res"), batch_size=4, img_res=64, num_workers=1,
+                          device="cpu")
     runs = _launch(_EVAL, tmp_path / "ranks", tmp_path / "ranks_res", env=_env(**tree))
     got = [json.loads(next(ln for ln in out.splitlines() if ln.startswith("EVAL_RESULT "))[12:]) for _, out in runs]
     assert got[0] == got[1]
@@ -493,12 +489,7 @@ def test_train_gpu_on_two_ranks_checkpoints_once_and_resumes_in_one_process(tree
     with open(tmp_path / "dp" / "tensorboard" / "scalars.jsonl") as f:
         assert len(f.read().splitlines()) > 0
     # One process resumes the 2-rank run's checkpoint.
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        trainer = train_gpu.main(_train_args(tmp_path) + ["--resume", "--data_test", ""])
-    finally:
-        torch.set_num_threads(threads)
+    trainer = train_gpu.main(_train_args(tmp_path) + ["--resume", "--data_test", ""])
     assert (trainer.epoch0, trainer.step_count) == (1, 2)
     for k, v in trainer.model.state_dict().items():
         assert torch.equal(v, saved["model"][k]), k

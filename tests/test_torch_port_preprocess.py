@@ -24,6 +24,7 @@ from inbed_pose_estimation_tpu_torch.data import BaseDataset, heatmap
 from inbed_pose_estimation_tpu_torch.data.synthetic import write_synthetic_danalab
 from inbed_pose_estimation_tpu_torch.tools import preprocess_datasets
 from inbed_pose_estimation_tpu_torch.tools.preprocess import read_openpose, slp_multi_mod, slp_single_mod
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_IMGS = 2
 

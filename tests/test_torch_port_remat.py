@@ -20,18 +20,9 @@ from inbed_pose_estimation_tpu_torch.models.layers import checkpoint, recomputin
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
 from inbed_pose_estimation_tpu_torch.tools.bench_train import train_batch
 from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B, N_FITS = 64, 2, 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for torch in this module: six test workers share
-    the machine's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _step(name, remat):

@@ -23,6 +23,7 @@ from inbed_pose_estimation_tpu_torch import constants
 from inbed_pose_estimation_tpu_torch.evaluation.evaluate import _save_artifacts, _stretch_depth
 from inbed_pose_estimation_tpu_torch.ops import vert2map
 from inbed_pose_estimation_tpu_torch.render import Debugger, Renderer
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, V, F = 64, 150, 200
 # K4 against JAX: the contact map exactly (a count of neighbours, no

@@ -23,16 +23,7 @@ from inbed_pose_estimation_tpu_torch.models.layers import Conv2d
 from inbed_pose_estimation_tpu_torch.ops import shuffle_project as sp
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
 from inbed_pose_estimation_tpu_torch.utils.profiling import span
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for torch in this module: six test workers share
-    the machine's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _moved_batch_norms(module, seed):

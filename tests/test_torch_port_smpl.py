@@ -22,6 +22,7 @@ from inbed_pose_estimation_tpu_torch.smpl import (
     smpl_forward,
     synthetic_smpl_model,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _skin_inputs(seed, B, V):

@@ -14,16 +14,9 @@ from inbed_pose_estimation_tpu_torch.evaluation import (load_j_regressor_h36m, m
                                                         regress_j17)
 from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.smpl import lbs, synthetic_smpl_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B, CALLS = 64, 2, 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _inputs(spec, seed):

@@ -17,6 +17,7 @@ from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.render import PartRenderer
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
 from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 PORT_DIR = pathlib.Path(port.__file__).parent
 REPO = PORT_DIR.parent
@@ -119,3 +120,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
                                 options)
             else:
                 init_train_state(model, options, np.zeros((4, 82), np.float32))
+
+
+def test_port_tests_take_the_one_thread_policy():
+    """Every port test module imports `tests/torch_threads.py`'s fixture,
+    which is the only `one_torch_thread` under tests/; no port test module
+    sets torch's thread count itself (the child-process scripts it passes
+    as strings do, in their own processes)."""
+    tests = REPO / "tests"
+    defined = [str(p.relative_to(REPO)) for p in sorted(tests.rglob("*.py"))
+               if any(isinstance(n, ast.FunctionDef) and n.name == "one_torch_thread"
+                      for n in ast.walk(ast.parse(p.read_text())))]
+    assert defined == ["tests/torch_threads.py"]
+    for path in sorted(tests.glob("test_torch_port_*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        assert any(isinstance(n, ast.ImportFrom) and n.module == "torch_threads"
+                   and "one_torch_thread" in [a.name for a in n.names] for n in tree.body), path.name
+        calls = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Call)
+                 and isinstance(n.func, ast.Attribute) and n.func.attr == "set_num_threads"]
+        assert not calls, f"{path.name} sets torch's threads at lines {calls}"

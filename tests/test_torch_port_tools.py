@@ -16,6 +16,7 @@ from inbed_pose_estimation_tpu_torch import config
 from inbed_pose_estimation_tpu_torch.data.synthetic import write_synthetic_environment
 from inbed_pose_estimation_tpu_torch.tools import latency_mode, loader_bench, profile_mfu
 from inbed_pose_estimation_tpu_torch.tools.build_crop_cache import main as build_cache
+from torch_threads import one_torch_thread  # noqa: F401
 
 # The keys of the JAX tools' lines.
 LATENCY_ROWS = ("rtt", "noop", "resident_2fetch", "resident", "u8_h2d", "u8_put_only", "f32_h2d")
@@ -27,19 +28,11 @@ LOADER_CONFIGS = ["disk", "disk+fast", "cache", "cache+fast"]
 LOADER_ARGS = ["--img_res", "64", "--batch_size", "2", "--batches", "1"]
 
 
-@pytest.fixture
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _lines(capsys):
     return [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
 
 
-def test_latency_mode_prints_the_jax_rows(capsys, monkeypatch, one_torch_thread):
+def test_latency_mode_prints_the_jax_rows(capsys, monkeypatch):
     # One warm-up request a row instead of 5: this is a check of the rows,
     # not a measurement.
     monkeypatch.setattr(latency_mode, "_time_requests", functools.partial(latency_mode._time_requests, warm=1))
@@ -127,7 +120,7 @@ def test_profile_mfu_closed_form_flops_are_the_jax_tools(batch, res, num_cas):
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["inference", "train"])
-def test_profile_mfu_prints_the_jax_keys(train, capsys, tmp_path, one_torch_thread):
+def test_profile_mfu_prints_the_jax_keys(train, capsys, tmp_path):
     argv = ["--batches", "2", "--res", "64", "--iters", "2", "--device", "cpu"]
     if train:
         argv += ["--train", "--dtype", "float32"]  # bfloat16 convolutions are slow on the CPU

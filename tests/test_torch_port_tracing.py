@@ -21,6 +21,7 @@ from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
 from inbed_pose_estimation_tpu_torch.train import init_train_state, make_train_step, step_feed_keys
 from inbed_pose_estimation_tpu_torch.utils.profiling import StepTimer, span
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B, CALLS = 64, 2, 2
 
@@ -35,14 +36,6 @@ EVAL_SPANS = {
 }
 # The direct parent span of a span, where it is not `eval.call`.
 EVAL_PARENTS = {"featatt_cashmr": {"hmr.trunk": "hmr.multi_trunk"}}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

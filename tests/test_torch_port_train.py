@@ -29,6 +29,7 @@ from inbed_pose_estimation_tpu_torch.train import (
 )
 from inbed_pose_estimation_tpu_torch.train import losses as tL
 from inbed_pose_estimation_tpu_torch.weights import flax_path, load_jax_adam_state, load_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B = 64, 2
 

@@ -24,6 +24,7 @@ from inbed_pose_estimation_tpu_torch.models import build_model
 from inbed_pose_estimation_tpu_torch.smpl import synthetic_smpl_model
 from inbed_pose_estimation_tpu_torch.train import init_train_state, make_train_step, step_feed_keys
 from inbed_pose_estimation_tpu_torch.weights import load_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B, N_FITS = 64, 2, 16
 IMAGE_KEYS = ("img", "ir_img", "depth_img", "pm_img", "depth_img_uncover")

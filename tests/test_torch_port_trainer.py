@@ -35,6 +35,7 @@ from inbed_pose_estimation_tpu_torch.train import (
     resume_train_state, save_checkpoint,
 )
 from inbed_pose_estimation_tpu_torch.weights import flax_path, load_jax_adam_state, load_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES, B, MODEL = 64, 4, "hmr"
 # The Trainer against JAX's, the fits store after steps 1 and 2
@@ -394,7 +395,7 @@ def test_train_gpu_runs_on_the_cpu(tree, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--dtype", "bfloat16"], ["--remat"], ["--remat", "decoder"], ["--fast_preprocess"],
                                   ["--crop_cache", "x"], ["--model", "bodiesAtRest"]],
                          ids=lambda f: "_".join(f).strip("-"))
-def test_train_gpu_rejects_what_is_not_ported(tree, tmp_path, flag, capsys, monkeypatch):
+def test_train_gpu_threads_each_flag(tree, tmp_path, flag, capsys, monkeypatch):
     """Every flag is ported.  --dtype bfloat16, --remat and --remat decoder
     run one step of hmr and reach build_model (dtype, remat_decoder) and
     make_train_step (options.remat) as train.py threads them; the
@@ -444,17 +445,6 @@ def test_train_gpu_rejects_what_is_not_ported(tree, tmp_path, flag, capsys, monk
         assert "crop cache: no cache for slp-4mod-train (train) in x; reading from disk" in capsys.readouterr().out
 
 
-@pytest.fixture
-def one_torch_thread():
-    """One intra-op thread for torch in a fusion model's test: the parallel
-    test run puts six workers on the machine's cores, and a thread pool as
-    wide as the machine in each worker contends more than it computes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def guide_pt(tmp_path_factory):
     """A seeded ir_depth_fusion's state in the reference layout, as
@@ -466,7 +456,7 @@ def guide_pt(tmp_path_factory):
     return str(path), donor.state_dict()
 
 
-def test_train_gpu_grafts_the_fusion_guide(tree, tmp_path, guide_pt, one_torch_thread):
+def test_train_gpu_grafts_the_fusion_guide(tree, tmp_path, guide_pt):
     """`--pretrained_fusion_checkpoint` is accepted: the guide of
     ir_depth_pm_fusion holds the file's weights and stays in eval mode in
     the training model, and Adam holds only the main stage (that a step
@@ -483,7 +473,7 @@ def test_train_gpu_grafts_the_fusion_guide(tree, tmp_path, guide_pt, one_torch_t
     assert len(trainer.state.optimizer.param_groups[0]["params"]) == len(list(model.main.parameters()))
 
 
-def test_eval_gpu_grafts_the_fusion_guide(tree, guide_pt, monkeypatch, capsys, one_torch_thread):
+def test_eval_gpu_grafts_the_fusion_guide(tree, guide_pt, monkeypatch, capsys):
     """eval_gpu.py --pretrained_fusion_checkpoint: the guide is grafted after
     --checkpoint and the split is scored."""
     import eval_gpu
