@@ -45,6 +45,12 @@ class HMROutput(NamedTuple):
     pose6d: torch.Tensor  # [B, 144]
     recon: dict           # name -> [B, 1, H, W] recovered images
     pyramid: Optional[tuple] = None  # (x0..x4) when asked for
+    carry: Optional[tuple] = None    # what the next cascade pass may reuse (`MultiTrunkCore.forward`)
+
+
+# Trunk passes of `MultiTrunkCore`: run, and taken from the previous pass
+# of a cascade; raised where each happens, so a run can show which it did.
+trunk_passes = {"run": 0, "reused": 0}
 
 
 def _register_mean_params(module: nn.Module, mean_pose, mean_shape, mean_cam) -> None:
@@ -138,7 +144,9 @@ class MultiTrunkCore(nn.Module):
     departs from the reference here, each decoder's first level takes the
     fused x4's width (2048 * n) while its skips keep one trunk's widths: the
     reference's decoder expected fused skips too and would not have run.
-    The loop over the trunks is an `hmr.multi_trunk` span.
+    The loop over the trunks is an `hmr.multi_trunk` span.  In an eval
+    cascade a trunk whose input did not change since the previous pass
+    takes that pass's x4 (`forward`'s `carry`).
     """
 
     compute_dtype: Optional[torch.dtype] = None
@@ -162,15 +170,46 @@ class MultiTrunkCore(nn.Module):
         self.remat_decoder = remat_decoder
         _register_mean_params(self, mean_pose, mean_shape, mean_cam)
 
-    def forward(self, inputs, compute_recon: bool = True, generator=None) -> HMROutput:
+    def forward(self, inputs, compute_recon: bool = True, generator=None, carry=None) -> HMROutput:
         """inputs: one [B, C, H, W] tensor per modality, in feed order; the
-        rest as `HMRCore.forward`."""
+        rest as `HMRCore.forward`.
+
+        `carry` is the previous cascade pass's `HMROutput.carry`: per trunk
+        its input, that input's version counter and its x4 (None for an
+        inference tensor, which keeps no version counter).  A trunk in
+        eval mode, run without autograd, whose input is the very tensor of
+        that pass and not written in place since, takes that x4 instead of
+        running again: the same weights on the same input, so the same
+        bits.  Only x4 is carried, so the trunk whose skips the decoders
+        read runs whenever the pass decodes.  Without autograd and in eval
+        mode the output carries this pass's entries; otherwise (training,
+        where each pass updates BatchNorm's running statistics) none.
+        `trunk_passes` counts the trunks run and reused.
+        """
         if len(inputs) != len(self.trunk_names):
             raise ValueError(f"{len(inputs)} inputs for the trunks {self.trunk_names}")
+        decode = compute_recon and bool(self.recon_heads)
+        no_grad = not torch.is_grad_enabled()
+        x4s, skips = [], None
         with span("hmr.multi_trunk"):
-            pyramids = [getattr(self, f"feat_extraction_{name}").pyramid(x)
-                        for name, x in zip(self.trunk_names, inputs)]
-        x4s = [p[4] for p in pyramids]
+            for i, (name, x) in enumerate(zip(self.trunk_names, inputs)):
+                trunk = getattr(self, f"feat_extraction_{name}")
+                kept = carry[i] if carry is not None else None
+                skip = decode and i == self.skip_trunk
+                if (no_grad and not trunk.training and not skip and kept is not None and kept[0] is x
+                        and kept[1] == x._version):
+                    trunk_passes["reused"] += 1
+                    x4s.append(kept[2])
+                    continue
+                trunk_passes["run"] += 1
+                pyramid = trunk.pyramid(x)
+                x4s.append(pyramid[4])
+                if skip:
+                    skips = pyramid[:4]
         x4 = self.cross_att(x4s) if self.cross_att is not None else torch.cat(x4s, dim=1)
-        recon = _decode(self, pyramids[self.skip_trunk][:4] + (x4,)) if compute_recon else {}
-        return _regress(self, x4, recon, generator)
+        recon = _decode(self, skips + (x4,)) if decode else {}
+        out = _regress(self, x4, recon, generator)
+        if no_grad and not self.training:
+            out = out._replace(carry=tuple(None if x.is_inference() else (x, x._version, x4)
+                                           for x, x4 in zip(inputs, x4s)))
+        return out

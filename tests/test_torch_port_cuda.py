@@ -3,7 +3,8 @@ version, SMPLify through it, the training step on the card against the
 CPU, the uint8 feed decoded on the card, K2-K5 on the card against the
 CPU, the eval entry's pinned staging ring, and the decoders' shuffled
 one-channel projection kernel against its plain version and in whole eval
-calls.  Every test needs a CUDA device and skips without one (a CUDA
+calls, and the multi-trunk cascade's reuse of unchanged trunks against
+plain forwards.  Every test needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode); run them on the card with
 `python -m pytest tests/test_torch_port_cuda.py -m cuda`."""
 
@@ -628,3 +629,99 @@ def test_eval_call_through_the_fused_tails_matches_the_modules(cuda, monkeypatch
         assert gap <= limit, (k, gap)
     for k, v in plain["recon"].items():
         assert float((fused["recon"][k] - v).abs().max() / v.abs().max()) <= 2e-5, k
+
+
+def _featatt_on_card(cuda):
+    """featatt_cashmr's eval step at B=32, 224² (`_eval_step`), its model,
+    with the attention gains off zero, where the module is the identity."""
+    kept = []
+
+    def prepare(model):
+        with torch.no_grad():
+            model.cross_att.gamma.copy_(torch.tensor([0.5, -0.3, 0.2, 0.4]))
+        kept.append(model)
+
+    infer, spec = _eval_step("featatt_cashmr", cuda, prepare=prepare)
+    return infer, spec, kept[0]
+
+
+def test_unchanged_trunk_recomputes_its_pyramid_bit_for_bit(float32_cuda):
+    """The premise of the cascade's reuse: the RGB, IR and PM trunks, whose
+    inputs pass 1 gets unchanged, run again after a whole pass-0 forward
+    (trunks, attention, decoder, IEF) give every level of their pyramids
+    equal bit for bit to the first run's."""
+    _, spec, model = _featatt_on_card(float32_cuda)
+    inputs = tuple(x.to(float32_cuda) for x in _host_batch(spec, 12))
+    trunks = {name: getattr(model, f"feat_extraction_{name}") for name in ("rgb", "ir", "pm")}
+    slots = {name: model.trunk_names.index(name) for name in trunks}
+    with torch.no_grad():
+        first = {name: t.pyramid(inputs[slots[name]]) for name, t in trunks.items()}
+        model(inputs)
+        again = {name: t.pyramid(inputs[slots[name]]) for name, t in trunks.items()}
+    torch.cuda.synchronize()
+    for name in trunks:
+        for level, (a, b) in enumerate(zip(first[name], again[name])):
+            assert torch.equal(a, b), (name, level)
+
+
+def test_featatt_eval_call_with_reuse_equals_two_plain_forwards(float32_cuda):
+    """A featatt_cashmr eval call, which reuses the three unchanged trunks
+    in pass 1 (5 trunk passes run, 3 reused), answers as two plain
+    forwards handed nothing from each other, bit for bit: rotmat, betas,
+    cam and vertices, and pass 0's recovered depth through the cascade."""
+    from inbed_pose_estimation_tpu_torch.models import cascade_apply, hmr
+
+    infer, spec, model = _featatt_on_card(float32_cuda)
+    batch = _host_batch(spec, 13)
+    before = dict(hmr.trunk_passes)
+    got = infer(batch)
+    torch.cuda.synchronize()
+    assert (hmr.trunk_passes["run"] - before["run"], hmr.trunk_passes["reused"] - before["reused"]) == (5, 3)
+    inputs = tuple(x.to(float32_cuda) for x in batch)
+    with torch.no_grad():
+        first = model(inputs)
+        second = model((inputs[0], inputs[1], first.recon["depth"], inputs[3]), compute_recon=False)
+        verts, _ = lbs(synthetic_smpl_model(0, device=float32_cuda), second.betas, second.rotmat)
+        outs = cascade_apply(lambda mods, **kw: model(mods, **kw), inputs, 2, feed_map=spec.cascade_feed_map,
+                             final_recon=False)
+    torch.cuda.synchronize()
+    for k in ("rotmat", "betas", "cam"):
+        assert torch.equal(got[k], getattr(second, k)), k
+        assert torch.equal(getattr(outs[1], k), getattr(second, k)), k
+    assert torch.equal(got["vertices"], verts)
+    assert torch.equal(outs[0].recon["depth"], first.recon["depth"])
+
+
+def _featatt_train_step_passes(device):
+    """The trunk passes (run, reused) of one featatt_cashmr train step at
+    RES 64, batch 2, on `device`, SMPLify off, and the step's metrics."""
+    from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
+    from inbed_pose_estimation_tpu_torch.models import build_model, hmr
+    from inbed_pose_estimation_tpu_torch.train import build_parser, init_train_state, make_train_step, step_feed_keys
+
+    options = build_parser().parse_args(["--name", "card", "--img_res", "64", "--batch_size", "2"])
+    torch.manual_seed(0)
+    model, spec = build_model("featatt_cashmr", device=device, img_res=64)
+    r = np.random.default_rng(3)
+    batch = {k: r.normal(0, 1, (2, 3 if k == "img" else 1, 64, 64)) for k in step_feed_keys(spec)
+             if k.endswith(("img", "_uncover"))}
+    batch.update(keypoints=np.concatenate([r.uniform(-0.8, 0.8, (2, 49, 2)), np.ones((2, 49, 1))], -1),
+                 pose=r.normal(0, 0.2, (2, 72)), betas=r.normal(0, 0.5, (2, 10)),
+                 pose_3d=np.concatenate([r.normal(0, 0.3, (2, 24, 3)), np.ones((2, 24, 1))], -1),
+                 has_smpl=np.array([1.0, 0.0]), has_pose_3d=np.ones(2), is_flipped=np.array([0.0, 1.0]),
+                 rot_angle=np.array([10.0, -5.0]), sample_index=np.array([3, 9]))
+    state = init_train_state(model, options, np.zeros((16, 82)), device=device)
+    step = make_train_step(model, spec, synthetic_smpl_model(0, device=device), synthetic_gmm_prior(device=device),
+                           options, device=device)
+    before = dict(hmr.trunk_passes)
+    state, metrics = step(state, batch)
+    return (hmr.trunk_passes["run"] - before["run"], hmr.trunk_passes["reused"] - before["reused"]), metrics
+
+
+def test_featatt_train_step_on_card_reuses_no_trunk(cuda):
+    """A featatt_cashmr train step on the card runs all 8 trunk passes of
+    its two-pass cascade and reuses none: in training mode each pass
+    updates BatchNorm's running statistics."""
+    passes, metrics = _featatt_train_step_passes(cuda)
+    assert passes == (8, 0)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

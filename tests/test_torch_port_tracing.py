@@ -31,7 +31,7 @@ EVAL_SPANS = {
                  "eval.j17": 1},
     "ir_depth_pm_fusion": {"eval.call": 1, "eval.h2d": 1, "hmr.trunk": 4, "fusion.recover": 2, "hmr.ief": 4,
                            "smpl.lbs": 3, "ops.body_mask": 2, "eval.j17": 1},
-    "featatt_cashmr": {"eval.call": 1, "eval.h2d": 1, "hmr.multi_trunk": 2, "hmr.trunk": 8, "hmr.cross_att": 2,
+    "featatt_cashmr": {"eval.call": 1, "eval.h2d": 1, "hmr.multi_trunk": 2, "hmr.trunk": 5, "hmr.cross_att": 2,
                        "hmr.decoder": 1, "hmr.ief": 2, "smpl.lbs": 1, "eval.j17": 1},
 }
 # The direct parent span of a span, where it is not `eval.call`.
