@@ -1,7 +1,8 @@
 """Model registry: the registered architecture names and how each is fed.
 
 Every name the JAX package registers has its spec here, and `build_model`
-builds each of them.
+builds each of them; `hmr2_vith4mod` (HMR 2.0, `models/vit.py`) is the
+port's own.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .bodies_at_rest import BodiesAtRest
 from .fusion import FrozenGuidedFusion, TwoStageFusion
 from .hmr import MODALITY_CHANNELS, HMRCore, MultiTrunkCore
 from .layers import set_compute_dtype
+from .vit import HMR2, WIDTHS as VIT_WIDTHS
 
 MODALITY_SETS = {
     "rgb": ("img",),
@@ -42,6 +44,9 @@ class ModelSpec:
     recon_heads: Tuple[str, ...] = ()
     # recon head -> input slot it replaces between cascade stages
     cascade_feed_map: Tuple[Tuple[str, int], ...] = (("depth", 2),)
+    # the network the concat input feeds: "resnet50" (HMRCore, or the
+    # input mode's own model) or a key of `vit.WIDTHS` (HMR2 at its widths)
+    trunk: str = "resnet50"
 
     @property
     def in_channels(self) -> int:
@@ -77,6 +82,9 @@ _SPECS = {
     ),
     "bodiesAtRest": ModelSpec("bodiesAtRest", "pm_contact", ("pm_img",)),
     "bodiesAtRest4mod": ModelSpec("bodiesAtRest4mod", "pm_contact", MODALITY_SETS["all4"]),
+    # Port-only: HMR 2.0's ViT-H/16 and transformer-decoder head on the
+    # four modalities joined on channels (arXiv:2305.20091).
+    "hmr2_vith4mod": ModelSpec("hmr2_vith4mod", "concat", MODALITY_SETS["all4"], trunk="vit_h16"),
 }
 
 
@@ -111,6 +119,7 @@ def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str |
     is the rate of its dropout in training mode; None keeps the family's:
     0.5 in the IEF heads, 0.1 in Bodies-At-Rest's tanh stack.  `img_res`
     sizes Bodies-At-Rest's fc1 (the other families pool to a fixed width).
+    `img_res` also sizes the ViT's position embedding.
     `dtype` is the compute dtype (float32 or bfloat16; the parameters are
     float32 either way, `layers.set_compute_dtype`).  `remat_decoder`
     checkpoints the decoders of the concat and multi families (`--remat
@@ -119,7 +128,8 @@ def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str |
 
     Returns (module, spec):
       concat: HMRCore on the channel-concatenated modalities, with the
-        spec's decoders;
+        spec's decoders; for a `trunk` of `vit.WIDTHS`, HMR2 at those
+        widths (`dropout_rate`, when given, is the top drop-path rate);
       multi: MultiTrunkCore, one trunk per modality, cross attention for
         featatt_cashmr and ir_depth_featatt_cashmrV2, decoder skips from
         trunk min(2, n - 1);
@@ -141,7 +151,10 @@ def build_model(name: str, smpl_mean_params: Optional[str] = None, device: str |
     rate = 0.5 if dropout_rate is None else dropout_rate
     mp = mean_params(smpl_mean_params)
     means = (mp["pose"], mp["shape"], mp["cam"])
-    if spec.input_mode == "concat":
+    if spec.trunk in VIT_WIDTHS:
+        module = HMR2(spec.in_channels, *means, widths=VIT_WIDTHS[spec.trunk], img_res=img_res,
+                      drop_path_rate=dropout_rate)
+    elif spec.input_mode == "concat":
         module = HMRCore(spec.in_channels, *means, recon_heads=spec.recon_heads, dropout_rate=rate,
                          remat_decoder=remat_decoder)
     elif spec.input_mode == "multi":

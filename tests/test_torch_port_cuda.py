@@ -3,8 +3,9 @@ version, SMPLify through it, the training step on the card against the
 CPU, the uint8 feed decoded on the card, K2-K5 on the card against the
 CPU, the eval entry's pinned staging ring, and the decoders' shuffled
 one-channel projection kernel against its plain version and in whole eval
-calls, and the multi-trunk cascade's reuse of unchanged trunks against
-plain forwards.  Every test needs a CUDA device and skips without one (a CUDA
+calls, the multi-trunk cascade's reuse of unchanged trunks against
+plain forwards, and HMR 2.0 (hmr2_vith4mod) against the benchmark's plain
+reference at its published widths.  Every test needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode); run them on the card with
 `python -m pytest tests/test_torch_port_cuda.py -m cuda`."""
 
@@ -725,3 +726,32 @@ def test_featatt_train_step_on_card_reuses_no_trunk(cuda):
     passes, metrics = _featatt_train_step_passes(cuda)
     assert passes == (8, 0)
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def test_hmr2_eval_call_matches_the_reference_within_the_cells_limits(float32_cuda):
+    """hmr2_vith4mod at its published widths, B=32, 224²: the eval step the
+    benchmark times (`benchmark/program.py`, the registered model with the
+    reference's seeded weights) against the plain reference
+    (`benchmark/reference/vit_hmr.py`) on two of the cell's batches,
+    within the cell's limits of `correct`; each call runs 38 self and 6
+    cross attention cores (32 blocks, 6 head layers) on the plain route."""
+    import pathlib
+    from collections import Counter
+
+    from benchmark import check, harness, program, traffic_gen
+    from inbed_pose_estimation_tpu_torch.models import vit
+
+    cell = harness.make_cell(pathlib.Path(__file__).resolve().parents[1], "hmr2_vith4mod.eval.b32", 2**31 + 2020,
+                             float32_cuda)
+    run = cell.run
+    _, infer = program.build_inference(run)
+    for inputs in traffic_gen.make_pool(run.config, run.traffic, run.seed, run.device)[:2]:
+        before = Counter(vit.attention_calls)
+        got = program.to_host(infer(inputs))
+        calls = Counter(vit.attention_calls)
+        calls.subtract(before)
+        assert +calls == Counter({("plain", "self"): 38, ("plain", "cross"): 6})
+        numbers, _ = check.answer_numbers(run, inputs, check.flatten(got))
+        assert set(numbers) == set(cell.limits)
+        for k, limit in cell.limits.items():
+            assert numbers[k] <= limit, (k, numbers[k])

@@ -157,16 +157,27 @@ def test_inference_cashmrv2_matches_jax(cashmr, modalities, smpl_and_jreg, final
         np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]), atol=1e-5, err_msg=k)
 
 
-def test_factory_covers_registry():
+def test_factory_covers_registry(monkeypatch):
+    """Every name the JAX package registers, and the port's own names
+    (HMR 2.0, `hmr2_vith4mod`), which the port builds on the meta device:
+    at its published widths it holds 2.7 GB of float32 parameters."""
     from inbed_pose_estimation_tpu.models import model_names as j_model_names
+    from inbed_pose_estimation_tpu_torch.models import factory
 
-    assert model_names() == j_model_names()
+    port_only = ("hmr2_vith4mod",)
+    assert set(j_model_names()) <= set(model_names())
+    assert tuple(sorted(set(model_names()) - set(j_model_names()))) == port_only
     concat = [n for n in model_names() if get_spec(n).input_mode == "concat"]
     assert sorted(concat) == sorted(["hmr", "hmr4mod", "irhmr", "depthhmr", "pmhmr", "mulhmr", "rechmr",
-                                     "cashmr", "cashmrV2", "rec3hmr", "cas3hmr"])
-    assert len(model_names()) == 23
-    for name in model_names():
+                                     "cashmr", "cashmrV2", "rec3hmr", "cas3hmr", "hmr2_vith4mod"])
+    assert len(model_names()) == 24
+    for name in j_model_names():
         port, spec = build_model(name, device="cpu")
+        assert not port.training and spec.name == name
+    monkeypatch.setattr(factory, "resolve_device", torch.device)
+    for name in port_only:
+        with torch.device("meta"):
+            port, spec = build_model(name, device="meta")
         assert not port.training and spec.name == name
     # Bodies-At-Rest: fc1 sized from the resolution, the mode-2 stack on
     # bodiesAtRest4mod only, as the JAX package's eval tree has it.
