@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero before the last line:
      the main path's shapes (skinning: the affines strided as lbs passes
      them, and contiguous), at the training batch (64) and at ragged edges,
      its gradient, and its time (CUDA graph and eager, CUDA events) beside
-     its bound, the plain version's time and the single-node floor;
+     its bound, the plain version's time and the single-node floor; the
+     trunk's tail kernel (batch_norm_act) in each form at batch 32 on the
+     trunk's shapes, equal to its plain version bit for bit (not timed);
   4. main path: cashmrV2 at full width (batch 32, 224x224, float32, seeded
      random weights, 2-pass cascade, final_recon=False) -> SMPL LBS -> J17
      -> MPJPE / PA-MPJPE through `make_inference_fn`, with the launch
@@ -57,7 +59,8 @@ Phases, in order; any failure exits non-zero before the last line:
      float32, seeded random weights): eval inference of featatt_cashmr,
      ir_depth_featatt_cashmrV2, ir_depth_fusion and ir_depth_pm_fusion at
      batch 32 (the skinning launches of one call, including the fusion
-     models' in-model body masks, images/s, peak memory), featatt_cashmr and
+     models' in-model body masks, the shuffled projection's and the trunk
+     tail kernel's launches, images/s, peak memory), featatt_cashmr and
      ir_depth_pm_fusion on the card against the CPU at RES 64, the body mask
      (K2) on the card against the CPU and its time, and the train step with
      SMPLify (100 Adam steps a stage) of featatt_cashmr, ir_depth_fusion and
@@ -225,6 +228,22 @@ FAMILY_TRAIN = {"featatt_cashmr": (64, 206), "ir_depth_fusion": (64, 207), "ir_d
 FAMILY_PROJECTIONS = {"featatt_cashmr": 1, "ir_depth_featatt_cashmrV2": 2, "ir_depth_fusion": 2,
                       "ir_depth_pm_fusion": 4}
 FAMILY_TRAIN_PROJECTIONS = {"featatt_cashmr": 0, "ir_depth_fusion": 0, "ir_depth_pm_fusion": 2}
+# The trunk's eval tail kernel: 33 relu, 12 add_relu and 4 bn_add_relu
+# launches a ResNet-50 pass, times the trunk passes of one eval call (cascade
+# passes x trunks, less the featatt_cashmr trunks that pass 1 reuses).
+TRUNK_TAILS = {"relu": 33, "add_relu": 12, "bn_add_relu": 4}
+# (channels, side, arrays read and written) of the tails of one 224^2 trunk
+# pass: the stem, then per stage conv1/conv2 (relu: x, out), conv3 (add_relu:
+# x, r, out) and the first block's conv3 with its projection (x, r, out).
+# The first block's conv1 runs at the previous stage's side.
+TRUNK_PASS_TAILS = [(64, 112, 2), (64, 56, 2 * 6), (256, 56, 3 * 3),
+                    (128, 56, 2), (128, 28, 2 * 7), (512, 28, 3 * 4),
+                    (256, 28, 2), (256, 14, 2 * 11), (1024, 14, 3 * 6),
+                    (512, 14, 2), (512, 7, 2 * 5), (2048, 7, 3 * 3)]
+TRUNK_TAIL_SHAPES = [(64, 112), (64, 56), (256, 56), (128, 28), (512, 28), (256, 14), (1024, 14), (512, 7),
+                     (2048, 7)]
+FAMILY_TRUNK_PASSES = {"featatt_cashmr": 5, "ir_depth_featatt_cashmrV2": 4, "ir_depth_fusion": 2,
+                       "ir_depth_pm_fusion": 4}
 # The projection kernel's launches read by the phases, for the final kernels line.
 projection_launches = {}
 # The same weights on the card and on the CPU at RES 64, batch 2: the
@@ -1128,6 +1147,7 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
     from inbed_pose_estimation_tpu_torch.fitting import synthetic_gmm_prior
     from inbed_pose_estimation_tpu_torch.models import build_model, model_names
     from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
+    from inbed_pose_estimation_tpu_torch.ops import batch_norm_act as bna
     from inbed_pose_estimation_tpu_torch.ops import shuffle_project as sp
     from inbed_pose_estimation_tpu_torch.ops import skinning as sk
     from inbed_pose_estimation_tpu_torch.ops.mask_raster import render_body_mask
@@ -1161,10 +1181,15 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         sk.launches = sp.launches = 0
+        bna.launches = dict.fromkeys(bna.FORMS, 0)
         out = infer(inputs)
         torch.cuda.synchronize()
         eval_launches[name] = sk.launches
         projection_launches.setdefault("families_eval", {})[name] = sp.launches
+        tails = dict(bna.launches)
+        expected_tails = {k: n * FAMILY_TRUNK_PASSES[name] for k, n in TRUNK_TAILS.items()}
+        check(tails == expected_tails, f"{name}: the trunk's tail kernel launched {tails} in one eval call, "
+                                       f"expected {expected_tails}")
         check(sk.launches == expected, f"{name}: skinning launched {sk.launches} times in one eval call, "
                                        f"expected {expected}")
         check(sp.launches == FAMILY_PROJECTIONS[name], f"{name}: shuffled projection launched {sp.launches} times in "
@@ -1190,7 +1215,8 @@ def families_phase(torch, np, dev, smi, smpl, cuda_ms):
         with torch.no_grad(), FlopCounterMode(display=False) as counter:
             infer(inputs)
         log("families_eval", model=name, batch=BATCH, res=RES,
-            launches={"skinning": eval_launches[name], "shuffle_project": projection_launches["families_eval"][name]},
+            launches={"skinning": eval_launches[name], "shuffle_project": projection_launches["families_eval"][name],
+                      "batch_norm_act": tails},
             expected=expected, images_per_s=BATCH * TIMED_CALLS / seconds, ms_per_batch=1e3 * seconds / TIMED_CALLS,
             calls=TIMED_CALLS, tflop_per_batch=counter.get_total_flops() / 1e12,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=smi)
@@ -2368,6 +2394,7 @@ def main() -> int:
     from inbed_pose_estimation_tpu_torch.geometry import batch_rodrigues
     from inbed_pose_estimation_tpu_torch.models import build_model
     from inbed_pose_estimation_tpu_torch.models.factory import MODALITY_CHANNELS
+    from inbed_pose_estimation_tpu_torch.ops import batch_norm_act as bna
     from inbed_pose_estimation_tpu_torch.ops import build
     from inbed_pose_estimation_tpu_torch.ops import shuffle_project as sp
     from inbed_pose_estimation_tpu_torch.ops import skinning as sk
@@ -2597,6 +2624,36 @@ def main() -> int:
         del pre, args, tail
     torch.cuda.empty_cache()
 
+    # The trunk's eval tail (ops/batch_norm_act.py) in each form at B=32 on
+    # the shapes of one 224^2 trunk pass, against its plain version bit for
+    # bit, with BatchNorms off their init values and NaN, infinities and
+    # signed zeros in the inputs; 7^2 takes the kernel's scalar path.  Not
+    # timed: bound_ms is the bytes of one trunk pass's 49 launches at the
+    # card's bandwidth.
+    tails = {}
+    for c, side in TRUNK_TAIL_SHAPES:
+        norms = [torch.nn.BatchNorm2d(c).to(dev).eval().requires_grad_(False) for _ in range(2)]
+        with torch.no_grad():
+            for bn in norms:
+                for t, draw in ((bn.running_mean, torch.randn(c)), (bn.running_var, 2 * torch.rand(c) + 0.1),
+                                (bn.weight, torch.rand(c) + 0.5), (bn.bias, torch.randn(c))):
+                    t.copy_(draw)
+        x, r = (2 * torch.randn(BATCH, c, side, side, generator=gen, device=dev) for _ in range(2))
+        for t in (x, r):
+            t.view(-1)[:4] = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0])
+        bna.launches = dict.fromkeys(bna.FORMS, 0)
+        for form, args in zip(bna.FORMS, ((x, norms[0]), (x, norms[0], r), (x, norms[0], r, norms[1]))):
+            got, want = bna.batch_norm_act(*args), bna.batch_norm_act_reference(*args)
+            tails[f"{form}_c{c}_{side}"] = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        torch.cuda.synchronize()
+        check(bna.launches == dict.fromkeys(bna.FORMS, 1),
+              f"batch_norm_act launched {bna.launches} at C={c}, {side}^2, expected one of each form")
+        del x, r, got, want
+    log("batch_norm_act", batch=BATCH, bit_equal=tails)
+    check(all(tails.values()), f"batch_norm_act kernel differs from batch_norm_act_reference: {tails}")
+    tail_bytes = 4 * BATCH * sum(n * c * side * side for c, side, n in TRUNK_PASS_TAILS)
+    tail_bound_ms = 1e3 * tail_bytes / HBM_BYTES_PER_S
+
     # 4. main path
     torch.manual_seed(SEED)  # module initializers draw from torch's default generator
     model, spec = build_model(MODEL, device=dev)
@@ -2607,13 +2664,17 @@ def main() -> int:
                    for m in spec.modalities)
 
     sk.launches = sp.launches = 0
+    bna.launches = dict.fromkeys(bna.FORMS, 0)
     out = infer(inputs)
     torch.cuda.synchronize()
-    counts = {"skinning": sk.launches, "shuffle_project": sp.launches}
+    counts = {"skinning": sk.launches, "shuffle_project": sp.launches, "batch_norm_act": dict(bna.launches)}
     log("main_path", model=MODEL, batch=BATCH, res=RES, num_cas_iters=NUM_CAS_ITERS, launches=counts)
     check(counts["skinning"] == 1, f"skinning kernel launched {counts['skinning']} times in one call, expected 1")
     check(counts["shuffle_project"] == 1,
           f"shuffled projection kernel launched {counts['shuffle_project']} times in one call, expected 1")
+    expected_tails = {k: n * NUM_CAS_ITERS for k, n in TRUNK_TAILS.items()}
+    check(counts["batch_norm_act"] == expected_tails,
+          f"trunk tail kernel launched {counts['batch_norm_act']} times in one call, expected {expected_tails}")
 
     k3d = out["keypoints_3d_17"]
     check(tuple(out["vertices"].shape) == (BATCH, V, 3) and tuple(k3d.shape) == (BATCH, 17, 3), "output shapes")
@@ -2771,6 +2832,12 @@ def main() -> int:
         "bound_ms_c64": projection[64]["bound_ms"], "bound_by_c64": projection[64]["bound_by"],
         "library_ms_c64": projection[64]["library_ms"], "eager_ms_c64": projection[64]["eager_ms"],
         **{f"launches_{k}": v for k, v in projection_launches.items()},
+    }, {
+        "name": "batch_norm_act", "route": "cuda",
+        "source": "inbed_pose_estimation_tpu_torch/ops/csrc/batch_norm_act.cu",
+        "replaces": "none (the JAX package's flax BatchNorm, add and relu in inbed_pose_estimation_tpu/models/backbone.py)",
+        "launches": counts["batch_norm_act"], "bit_equal": all(tails.values()), "shapes_checked": len(tails),
+        "bound_ms_trunk_pass": tail_bound_ms, "bound_by": "bytes", "bytes_trunk_pass": tail_bytes,
     }]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

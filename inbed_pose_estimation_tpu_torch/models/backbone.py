@@ -15,6 +15,14 @@ running variance with the unbiased variance, which flax does not.  The
 step's other global semantics (masked counts, dropout masks, the
 replicated fits) and the one departure from JAX (a raise where JAX idles
 devices that do not divide the batch) are set out in `parallel.mesh`.
+
+In eval the tail after each of the trunk's convolutions, BatchNorm, the
+residual add (through the projection's BatchNorm in a projection block)
+and ReLU, runs as one CUDA kernel (`ops/batch_norm_act.py`) where
+`fused_route` allows it: float32 on the card, without autograd, every
+BatchNorm on its running statistics.  It gives the modules' output bit for
+bit there.  The modules and their parameter names stay; training,
+autograd, recompute, bfloat16 and the CPU run them.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batch_norm_act import batch_norm_act
 from ..parallel import mesh
 from ..utils.profiling import span
 from .layers import Conv2d, collective, recomputing
@@ -96,6 +105,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         return out.to(x.dtype)
 
 
+def fused_route(x, convs, norms) -> bool:
+    """Whether the eval tail after `convs` runs as one of the port's kernels
+    (`batch_norm_act` here, `shuffle_project` in the decoders): x float32
+    on the card, the convolutions computing in it, no autograd, and every
+    BatchNorm of `norms` normalizing with its running statistics."""
+    return (x.device.type == "cuda" and x.dtype == torch.float32 and not torch.is_grad_enabled()
+            and all(conv.compute_dtype is None for conv in convs) and not any(bn.training for bn in norms))
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3(stride) -> 1x1(x4) residual block, optional projection."""
 
@@ -115,6 +133,17 @@ class Bottleneck(nn.Module):
             )
 
     def forward(self, x):
+        convs, norms = [self.conv1, self.conv2, self.conv3], [self.bn1, self.bn2, self.bn3]
+        if self.downsample is not None:
+            convs.append(self.downsample[0])
+            norms.append(self.downsample[1])
+        if fused_route(x, convs, norms):
+            h = batch_norm_act(self.conv1(x), self.bn1)
+            h = batch_norm_act(self.conv2(h), self.bn2)
+            if self.downsample is None:
+                return batch_norm_act(self.conv3(h), self.bn3, x)
+            project, project_bn = self.downsample
+            return batch_norm_act(self.conv3(h), self.bn3, project(x), project_bn)
         residual = x if self.downsample is None else self.downsample(x)
         h = F.relu(self.bn1(self.conv1(x)))
         h = F.relu(self.bn2(self.conv2(h)))
@@ -150,7 +179,8 @@ class ResNet50Trunk(nn.Module):
     def pyramid(self, x):
         with span("hmr.trunk"):
             x0 = self.conv1(x)
-            h = F.max_pool2d(F.relu(self.bn1(x0)), 3, stride=2, padding=1)
+            h = batch_norm_act(x0, self.bn1) if fused_route(x0, [self.conv1], [self.bn1]) else F.relu(self.bn1(x0))
+            h = F.max_pool2d(h, 3, stride=2, padding=1)
             x1 = self.layer1(h)
             x2 = self.layer2(x1)
             x3 = self.layer3(x2)

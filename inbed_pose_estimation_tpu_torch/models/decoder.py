@@ -22,22 +22,14 @@ from torch import nn
 
 from ..ops.shuffle_project import batch_norm_terms, shuffle_project
 from ..utils.profiling import span
-from .backbone import BatchNorm2d
+from .backbone import BatchNorm2d, fused_route
 from .layers import Conv2d
-
-
-def fused_route(h, proj: Conv2d, bn=None) -> bool:
-    """Whether proj(bn(PixelShuffle(2)(h))) runs as the one kernel: h float32
-    on the card, proj computing in it, no autograd, and the BatchNorm (if
-    any) normalizing with its running statistics."""
-    return (h.device.type == "cuda" and h.dtype == torch.float32 and proj.compute_dtype is None
-            and not torch.is_grad_enabled() and (bn is None or not bn.training))
 
 
 def project_shuffled(h, shuffle: nn.PixelShuffle, proj: Conv2d, bn=None):
     """proj(bn(shuffle(h))) from the pre-shuffle map h (no bn when None):
     one kernel launch on the fused route, the modules otherwise."""
-    if fused_route(h, proj, bn):
+    if fused_route(h, [proj], [] if bn is None else [bn]):
         with span("ops.shuffle_project"):
             return shuffle_project(h, proj.weight, None if bn is None else batch_norm_terms(bn), proj.bias)
     h = shuffle(h)

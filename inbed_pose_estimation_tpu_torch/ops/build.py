@@ -6,12 +6,14 @@ interface, compiled for sm_90a into `_build/` beside this file (listed in
 flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing is built when the module is imported: `build_all()` compiles every
 source in parallel (one nvcc process each), and `library(name)` builds on
-first use and loads once per process.
+first use and loads once per process.  `launcher` types a kernel's C entry
+point once and launches it on its tensors' device and current stream.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -87,3 +89,33 @@ def library(name: str) -> ctypes.CDLL:
             build_all([name])
         _loaded[name] = ctypes.CDLL(str(target))
     return _loaded[name]
+
+
+def launcher(name: str, entry: str, argtypes: list):
+    """A launch of `entry` in `csrc/<name>.cu`.
+
+    The C function takes `argtypes`, then a cudaStream_t, and returns 0 or a
+    CUDA error code that `<name>_error_string` names.  The returned
+    `launch(device, *args)` builds and types the library on its first call,
+    calls `entry` under `device` on that device's current stream, and raises
+    a RuntimeError on a nonzero code.
+    """
+
+    @functools.cache
+    def typed():
+        lib = library(name)
+        forward, error_string = getattr(lib, entry), getattr(lib, f"{name}_error_string")
+        forward.argtypes, forward.restype = [*argtypes, ctypes.c_void_p], ctypes.c_int
+        error_string.argtypes, error_string.restype = [ctypes.c_int], ctypes.c_char_p
+        return forward, error_string
+
+    def launch(device, *args):
+        import torch
+
+        forward, error_string = typed()
+        with torch.cuda.device(device):
+            err = forward(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: {error_string(err).decode()}")
+
+    return launch

@@ -4,16 +4,19 @@ CPU, the uint8 feed decoded on the card, K2-K5 on the card against the
 CPU, the eval entry's pinned staging ring, and the decoders' shuffled
 one-channel projection kernel against its plain version and in whole eval
 calls, the multi-trunk cascade's reuse of unchanged trunks against
-plain forwards, and HMR 2.0 (hmr2_vith4mod) against the benchmark's plain
-reference at its published widths.  Every test needs a CUDA device and skips without one (a CUDA
+plain forwards, HMR 2.0 (hmr2_vith4mod) against the benchmark's plain
+reference at its published widths, and the ResNet-50 trunk's eval tail
+kernel against the modules at the trunk's shapes and in a whole pyramid.  Every test needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode); run them on the card with
 `python -m pytest tests/test_torch_port_cuda.py -m cuda`."""
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from inbed_pose_estimation_tpu_torch.geometry import batch_rodrigues
+from inbed_pose_estimation_tpu_torch.ops import batch_norm_act as bna
 from inbed_pose_estimation_tpu_torch.ops import shuffle_project as sp
 from inbed_pose_estimation_tpu_torch.ops import skinning as sk
 from inbed_pose_estimation_tpu_torch.smpl import lbs, synthetic_smpl_model
@@ -548,7 +551,8 @@ def test_frozen_guide_recovers_as_the_modules_at_the_training_batch(cuda, monkey
     the kernel twice, at 64 channels with a bias.  Each of those launches
     equals the modules' PixelShuffle -> Conv2d(64, 1, 3) on the same
     pre-shuffle map bit for bit, and the guide's recovered maps equal those
-    of the same call through the modules."""
+    of the same call through the modules.  Its two trunk passes take the
+    trunk's tail kernel as well, 49 launches each."""
     import torch.nn.functional as F
 
     from inbed_pose_estimation_tpu_torch.models import build_model, decoder
@@ -562,10 +566,11 @@ def test_frozen_guide_recovers_as_the_modules_at_the_training_batch(cuda, monkey
     calls, launch = [], sp.shuffle_project
     monkeypatch.setattr(decoder, "shuffle_project",
                         lambda *args: calls.append((args, launch(*args))) or calls[-1][1])
-    before = sp.launches
+    before, tails = sp.launches, dict(bna.launches)
     with torch.no_grad():
         fused = model.guide((ir, depth), smpl).recovered
     assert sp.launches == before + 2 and len(calls) == 2
+    assert {k: bna.launches[k] - tails[k] for k in tails} == {k: 2 * n for k, n in TRUNK_TAILS.items()}
     for (x, weight, norm, bias), got in calls:
         assert norm is None and x.shape == (64, 256, 112, 112)
         with torch.no_grad():
@@ -598,6 +603,13 @@ def _moved_decoder_tails(model, seed=5):
 EVAL_LIMITS = {"rotmat": 2e-5, "betas": 1e-5, "cam": 1e-5, "vertices": 2e-5, "keypoints_3d_17": 2e-5}
 
 
+# The trunk passes an eval call runs (cascade passes x trunks, less the
+# featatt_cashmr trunks that pass 1 reuses): each launches the trunk's tail
+# kernel 33 / 12 / 4 times (relu / add_relu / bn_add_relu).
+EVAL_TRUNK_PASSES = {"cashmrV2": 2, "featatt_cashmr": 5, "ir_depth_pm_fusion": 4}
+TRUNK_TAILS = {"relu": 33, "add_relu": 12, "bn_add_relu": 4}
+
+
 @pytest.mark.parametrize("name,stages", [("cashmrV2", 1), ("featatt_cashmr", 1), ("ir_depth_pm_fusion", 4)])
 def test_eval_call_through_the_fused_tails_matches_the_modules(cuda, monkeypatch, name, stages):
     """A whole eval call at B=32, 224² launches the kernel once per decoder
@@ -615,10 +627,12 @@ def test_eval_call_through_the_fused_tails_matches_the_modules(cuda, monkeypatch
     masks, render = [], fusion.render_body_mask
     monkeypatch.setattr(fusion, "render_body_mask", lambda *args, **kwargs: masks.append(render(*args, **kwargs))
                         or masks[-1])
-    before = sp.launches
+    before, tails = sp.launches, dict(bna.launches)
     fused = infer(batch)
     torch.cuda.synchronize()
     assert sp.launches == before + stages
+    assert {k: bna.launches[k] - tails[k] for k in tails} == {
+        k: n * EVAL_TRUNK_PASSES[name] for k, n in TRUNK_TAILS.items()}
     assert len(masks) == (2 if stages == 4 else 0)
     monkeypatch.setattr(fusion, "render_body_mask", lambda *args, **kwargs: masks.pop(0))
     monkeypatch.setattr(decoder, "fused_route", lambda *args, **kwargs: False)
@@ -723,8 +737,10 @@ def test_featatt_train_step_on_card_reuses_no_trunk(cuda):
     """A featatt_cashmr train step on the card runs all 8 trunk passes of
     its two-pass cascade and reuses none: in training mode each pass
     updates BatchNorm's running statistics."""
+    tails = dict(bna.launches)
     passes, metrics = _featatt_train_step_passes(cuda)
     assert passes == (8, 0)
+    assert bna.launches == tails  # training BatchNorms and autograd: the modules
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
 
@@ -745,6 +761,7 @@ def test_hmr2_eval_call_matches_the_reference_within_the_cells_limits(float32_cu
                              float32_cuda)
     run = cell.run
     _, infer = program.build_inference(run)
+    tails = dict(bna.launches)
     for inputs in traffic_gen.make_pool(run.config, run.traffic, run.seed, run.device)[:2]:
         before = Counter(vit.attention_calls)
         got = program.to_host(infer(inputs))
@@ -755,3 +772,146 @@ def test_hmr2_eval_call_matches_the_reference_within_the_cells_limits(float32_cu
         assert set(numbers) == set(cell.limits)
         for k, limit in cell.limits.items():
             assert numbers[k] <= limit, (k, numbers[k])
+    assert bna.launches == tails  # no ResNet: the trunk's tail kernel never runs
+
+
+def _moved_trunk_norms(module, seed):
+    """Every BatchNorm of `module` off its init values, as a trained trunk's:
+    shifts of a few units, scales around 1."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n, dev = m.num_features, m.running_mean.device
+                m.running_mean.copy_(torch.randn(n, generator=g).to(dev))
+                m.running_var.copy_((torch.rand(n, generator=g) * 2 + 0.1).to(dev))
+                m.weight.copy_((torch.rand(n, generator=g) + 0.5).to(dev))
+                m.bias.copy_(torch.randn(n, generator=g).to(dev))
+    return module
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+# (channels, side) of every tail of a trunk pass at 224²: the stem; each
+# stage's conv1 (the first block's at the previous stage's side), conv2,
+# conv3 and projection.  7² (H W = 49) takes the kernel's scalar path.
+TRUNK_SHAPES = [(64, 112), (64, 56), (256, 56), (128, 56), (128, 28), (512, 28), (256, 28), (256, 14), (1024, 14),
+                (512, 14), (512, 7), (2048, 7)]
+
+
+@pytest.mark.parametrize("C,side", TRUNK_SHAPES)
+def test_batch_norm_act_kernel_equals_the_modules_bit_for_bit(float32_cuda, C, side):
+    """At B=32 on each of the trunk's shapes, each form of the kernel gives
+    the modules' BatchNorm2d (eval), add and F.relu bit for bit, NaN, the
+    infinities and signed zeros in the inputs included."""
+    from inbed_pose_estimation_tpu_torch.models.backbone import BatchNorm2d
+
+    cuda = float32_cuda
+    bn, rbn = (_moved_trunk_norms(BatchNorm2d(C).to(cuda), s).eval() for s in (C, C + 1))
+    g = torch.Generator(cuda).manual_seed(side)
+    x, r = (torch.randn(32, C, side, side, device=cuda, generator=g) * 2 for _ in range(2))
+    for t in (x, r):
+        flat = t.view(-1)
+        flat[:4] = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0])
+        flat[-3:] = torch.tensor([0.0, -0.0, float("nan")])
+    before = dict(bna.launches)
+    with torch.no_grad():
+        forms = {"relu": (bna.batch_norm_act(x, bn), F.relu(bn(x))),
+                 "add_relu": (bna.batch_norm_act(x, bn, r), F.relu(bn(x) + r)),
+                 "bn_add_relu": (bna.batch_norm_act(x, bn, r, rbn), F.relu(bn(x) + rbn(r)))}
+    torch.cuda.synchronize()
+    assert {k: bna.launches[k] - before[k] for k in before} == dict.fromkeys(bna.FORMS, 1)
+    for form, (got, want) in forms.items():
+        assert torch.equal(_bits(got), _bits(want)), form
+
+
+def test_batch_norm_act_kernel_computes_invstd_as_torch(float32_cuda):
+    """The kernel computes invstd = rsqrt(running_var + eps) itself: with
+    x = 1, mean 0, weight 1 and bias 0 the output is that invstd, and it
+    equals torch.rsqrt(running_var + eps) bit for bit over variances from
+    1e-8 to 1e8."""
+    from inbed_pose_estimation_tpu_torch.models.backbone import BatchNorm2d
+
+    cuda = float32_cuda
+    C = 4096
+    bn = BatchNorm2d(C).to(cuda).eval()
+    with torch.no_grad():
+        bn.running_var.copy_(10.0 ** torch.linspace(-8, 8, C, device=cuda))
+        got = bna.batch_norm_act(torch.ones(2, C, 2, 2, device=cuda), bn)
+        want = torch.rsqrt(bn.running_var + bn.eps)
+    assert torch.equal(_bits(got), _bits(want.view(1, C, 1, 1).expand(2, C, 2, 2)))
+
+
+def test_trunk_pyramid_on_card_equals_the_modules_bit_for_bit(float32_cuda, monkeypatch):
+    """One eval ResNet50Trunk.pyramid at B=32, 224² through the kernel
+    equals the modules' route on x0..x4 bit for bit, with 33 relu, 12
+    add_relu and 4 bn_add_relu launches."""
+    from inbed_pose_estimation_tpu_torch.models import backbone
+
+    cuda = float32_cuda
+    torch.manual_seed(0)
+    trunk = _moved_trunk_norms(backbone.ResNet50Trunk(3).to(cuda), 21).eval()
+    x = torch.randn(32, 3, 224, 224, device=cuda)
+    before = dict(bna.launches)
+    with torch.no_grad():
+        fused = trunk.pyramid(x)
+        torch.cuda.synchronize()
+        assert {k: bna.launches[k] - before[k] for k in before} == TRUNK_TAILS
+        monkeypatch.setattr(backbone, "fused_route", lambda *args: False)
+        plain = trunk.pyramid(x)
+    torch.cuda.synchronize()
+    assert {k: bna.launches[k] - before[k] for k in before} == TRUNK_TAILS
+    for level, (a, b) in enumerate(zip(fused, plain)):
+        assert torch.equal(_bits(a), _bits(b)), level
+
+
+def test_trunk_tail_kernel_reads_statistics_written_since_the_last_call(float32_cuda, monkeypatch):
+    """A projection block on the kernel after an in-place write to a
+    running_var and after a load_state_dict equals the modules' with the
+    new statistics: nothing of a BatchNorm is kept between launches."""
+    from inbed_pose_estimation_tpu_torch.models import backbone
+
+    cuda = float32_cuda
+    torch.manual_seed(0)
+    block = _moved_trunk_norms(backbone.Bottleneck(256, 128, 2, project=True).to(cuda), 1).eval()
+    other = _moved_trunk_norms(backbone.Bottleneck(256, 128, 2, project=True).to(cuda), 2).eval()
+    x = torch.randn(8, 256, 56, 56, device=cuda)
+
+    def both():
+        """(the kernel's answer, the modules')"""
+        with monkeypatch.context() as m, torch.no_grad():
+            got = block(x)
+            m.setattr(backbone, "fused_route", lambda *args: False)
+            return got, block(x)
+
+    before = sum(bna.launches.values())
+    first, _ = both()
+    with torch.no_grad():
+        block.downsample[1].running_var.mul_(3)
+    edited, want_edited = both()
+    with torch.no_grad():
+        block.load_state_dict(other.state_dict())
+    loaded, want_loaded = both()
+    torch.cuda.synchronize()
+    assert sum(bna.launches.values()) == before + 9
+    assert not torch.equal(edited, first) and not torch.equal(loaded, edited)
+    assert torch.equal(edited, want_edited)
+    assert torch.equal(loaded, want_loaded)
+
+
+def test_trunk_takes_the_modules_under_autograd_and_in_bfloat16(float32_cuda):
+    from inbed_pose_estimation_tpu_torch.models.backbone import ResNet50Trunk
+    from inbed_pose_estimation_tpu_torch.models.layers import set_compute_dtype
+
+    cuda = float32_cuda
+    trunk = ResNet50Trunk(3).to(cuda).eval()
+    x = torch.randn(2, 3, 64, 64, device=cuda)
+    before = dict(bna.launches)
+    trunk.pyramid(x)  # autograd on
+    set_compute_dtype(trunk, torch.bfloat16)
+    with torch.no_grad():
+        trunk.pyramid(x)
+    torch.cuda.synchronize()
+    assert bna.launches == before

@@ -101,28 +101,28 @@ def test_route_takes_the_kernel_only_for_float32_eval_without_autograd_on_the_ca
     up, proj = upsampler(8), Conv2d(8, 1, 3, padding=1, bias=False)
     bn = up[2].eval()
     with torch.no_grad():
-        assert fused_route(_stand_in(), proj, bn)
-        assert fused_route(_stand_in(), proj)  # no BatchNorm: the fusion tail
-        assert not fused_route(_stand_in("cpu"), proj, bn)
-        assert not fused_route(torch.zeros(1, 32, 2, 2), proj, bn)
-        assert not fused_route(_stand_in(dtype=torch.bfloat16), proj, bn)
+        assert fused_route(_stand_in(), [proj], [bn])
+        assert fused_route(_stand_in(), [proj], [])  # no BatchNorm: the fusion tail
+        assert not fused_route(_stand_in("cpu"), [proj], [bn])
+        assert not fused_route(torch.zeros(1, 32, 2, 2), [proj], [bn])
+        assert not fused_route(_stand_in(dtype=torch.bfloat16), [proj], [bn])
         bn.train()
-        assert not fused_route(_stand_in(), proj, bn)  # batch statistics
+        assert not fused_route(_stand_in(), [proj], [bn])  # batch statistics
         bn.eval()
         proj.compute_dtype = torch.bfloat16
-        assert not fused_route(_stand_in(), proj, bn)
+        assert not fused_route(_stand_in(), [proj], [bn])
         proj.compute_dtype = None
     assert torch.is_grad_enabled()
-    assert not fused_route(_stand_in(), proj, bn)  # under autograd
+    assert not fused_route(_stand_in(), [proj], [bn])  # under autograd
     with torch.inference_mode():
-        assert fused_route(_stand_in(), proj, bn)
+        assert fused_route(_stand_in(), [proj], [bn])
 
 
 @pytest.fixture
 def fused_on_cpu(monkeypatch):
     """The decoders' fused branch taken on the CPU, where shuffle_project
     runs its plain version: the branch's wiring is then checked here."""
-    monkeypatch.setattr(decoder, "fused_route", lambda h, proj, bn=None: not torch.is_grad_enabled())
+    monkeypatch.setattr(decoder, "fused_route", lambda x, convs, norms: not torch.is_grad_enabled())
 
 
 def _reconstruct_inputs(B=1, top=16):
